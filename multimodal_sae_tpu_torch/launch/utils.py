@@ -1,0 +1,109 @@
+"""Launch-script plumbing of the cache CLI (multimodal_sae_tpu/launch/utils.py):
+subject loading from a local HF checkpoint, datasets, hookpoint checks.
+`transformers` and `datasets` are imported only inside the helpers that need
+a tokenizer or an HF dataset."""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from typing import Optional, Tuple
+
+import torch
+
+from ..device import DeviceLike
+
+_UNPORTED = {
+    "load_in_8bit": "slice 7 (int8 quantisation)",
+    "int8_matmul": "slice 7 (int8 quantisation)",
+    "int8_vision": "slice 7 (int8 quantisation)",
+    "sae_int8": "slice 7 (int8 quantisation)",
+    "tp": "slice 6 (multi-process and tensor parallelism)",
+    "dp": "slice 6 (multi-process and tensor parallelism)",
+}
+
+
+def _is_llava_checkpoint(model_name_or_path: str) -> bool:
+    cfg_file = os.path.join(model_name_or_path, "config.json")
+    if os.path.isdir(model_name_or_path) and os.path.isfile(cfg_file):
+        with open(cfg_file) as f:
+            return "llava" in json.load(f).get("model_type", "")
+    return "llava" in model_name_or_path
+
+
+def load_subject_model(
+    model_name_or_path: str,
+    dtype: torch.dtype = torch.bfloat16,
+    flash_attention: bool = False,
+    hf_token: Optional[str] = None,
+    truncate_layers: int = 0,
+    device: DeviceLike = None,
+) -> Tuple[object, None, object]:
+    """A plain LLaMA subject from a local HF checkpoint directory:
+    (model, processor None, tokenizer).  `truncate_layers` > 0 keeps only
+    the first N layers resident; hookpoints below N are unchanged."""
+    from transformers import AutoTokenizer
+
+    from ..models.hf_loader import load_llama
+    from ..models.llama import LlamaModel
+
+    if _is_llava_checkpoint(model_name_or_path):
+        raise NotImplementedError(
+            "LLaVA-NeXT subjects are not ported yet: ROADMAP.md slice 5 "
+            "(LLaVA-NeXT, CLIP and the image cache)"
+        )
+    params, cfg = load_llama(
+        model_name_or_path, dtype=dtype, device=device, truncate_layers=truncate_layers
+    )
+    cfg = dataclasses.replace(cfg, flash_attention=flash_attention or cfg.flash_attention)
+    tokenizer = AutoTokenizer.from_pretrained(model_name_or_path, token=hf_token)
+    return LlamaModel(params, cfg), None, tokenizer
+
+
+def load_subject_or_synthetic(cfg, device: DeviceLike = None):
+    """`synthetic://dM,L,V` builds the synthetic subject; anything else is a
+    local checkpoint through `load_subject_model`.  Refuses the options
+    whose paths later slices port."""
+    for name, item in _UNPORTED.items():
+        value = getattr(cfg, name, False)
+        if value is True or (not isinstance(value, bool) and value > 1):
+            raise NotImplementedError(f"--{name} is not ported yet: ROADMAP.md {item}")
+    if cfg.model.startswith("synthetic://"):
+        from ..models import SyntheticActivationSource
+
+        return SyntheticActivationSource.from_spec(cfg.model, device=device), None, None
+    return load_subject_model(
+        cfg.model,
+        flash_attention=cfg.flash_attention,
+        hf_token=cfg.hf_token,
+        truncate_layers=cfg.truncate_layers,
+        device=device,
+    )
+
+
+def load_any_dataset(name_or_path: str, split: str = "train"):
+    """A local `Dataset.save_to_disk` directory, or an HF hub dataset."""
+    from datasets import Dataset, load_dataset
+
+    if os.path.isdir(name_or_path) and os.path.exists(os.path.join(name_or_path, "state.json")):
+        return Dataset.load_from_disk(name_or_path)
+    return load_dataset(name_or_path, split=split, trust_remote_code=True)
+
+
+def validate_hookpoints(model, hookpoints) -> None:
+    """Fail fast on a hookpoint the subject does not have (wrong prefix, a
+    layer past its depth, or one dropped by --truncate_layers)."""
+    available = model.hookpoint_names()
+    missing = [h for h in hookpoints if h not in set(available)]
+    if missing:
+        raise ValueError(
+            f"hookpoint(s) {missing} not present on the subject model "
+            f"(it exposes {available[0]} .. {available[-1]}; "
+            f"--truncate_layers drops layers from the top)"
+        )
+
+
+def shard_info() -> Tuple[int, int]:
+    """(rank, world): one process until multi-process runs are ported."""
+    return 0, 1

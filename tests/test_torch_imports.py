@@ -1,0 +1,98 @@
+"""The PyTorch port stands alone: no file of it, nor chip_smoke.py, imports
+jax or the JAX package; importing every module of it in a fresh interpreter
+leaves both unloaded; its entry points refuse to run without a CUDA device
+unless the caller names one; chip_smoke.py fails without a card, and alone
+in a directory, and prints no result."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "multimodal_sae_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "multimodal_sae_tpu")
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_no_jax_imports_in_the_port_or_chip_smoke():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f) if m.split(".")[0] in FORBIDDEN]
+    assert bad == []
+
+
+def test_importing_every_module_leaves_jax_unloaded():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import multimodal_sae_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "import chip_smoke\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "assert len(names) > 20 and not bad, (len(names), bad)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300
+    )
+    assert r.returncode == 0, r.stderr[-2000:]
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    from multimodal_sae_tpu_torch.config import CacheConfig, SaeConfig
+    from multimodal_sae_tpu_torch.interp_utils import load_saes
+    from multimodal_sae_tpu_torch.launch.cache import cache as cli
+    from multimodal_sae_tpu_torch.models import LlamaConfig, LlamaModel, SyntheticActivationSource
+    from multimodal_sae_tpu_torch.sae import Sae
+
+    tiny = LlamaConfig(vocab_size=8, hidden_size=8, intermediate_size=8, num_hidden_layers=1,
+                       num_attention_heads=2, num_key_value_heads=1)
+    Sae(4, SaeConfig(expansion_factor=2, k=2), device="cpu").save_to_disk(tmp_path / "layers.0")
+    calls = [
+        lambda: Sae(4, SaeConfig(expansion_factor=2, k=2)),
+        lambda: Sae.load_from_disk(tmp_path / "layers.0"),
+        lambda: load_saes(str(tmp_path)),
+        lambda: LlamaModel.random(tiny),
+        lambda: SyntheticActivationSource(),
+        lambda: cli.main(CacheConfig(model="synthetic://4,1,8", sae_path=str(tmp_path))),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    # Named explicitly, the CPU runs the plain versions.
+    assert Sae(4, SaeConfig(expansion_factor=2, k=2), device="cpu").W_enc.device.type == "cpu"
+
+
+@pytest.mark.parametrize("alone", [False, True], ids=["in the repo", "alone"])
+def test_chip_smoke_fails_without_a_card(tmp_path, alone):
+    """Without CUDA (here), and alone in a directory without the package."""
+    if alone:
+        cwd = tmp_path
+        (tmp_path / "chip_smoke.py").write_text((ROOT / "chip_smoke.py").read_text())
+    else:
+        cwd = ROOT
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    r = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=cwd, env=env, capture_output=True, text=True, timeout=300
+    )
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
