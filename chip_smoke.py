@@ -13,13 +13,35 @@ Phases; any failure raises and ends the run with a non-zero exit code:
    it takes;
 3. flash_attention (K3) against its plain version at LLaMA-3-8B's attention
    shape, unmasked and with one row left-padded by 100, then at edge shapes;
-4. cache_path: a random LLaMA-3-8B-width subject (25 layers for hookpoint
+4. flash_attention_bwd (K3 backward): the kernels' forward and backward
+   against the plain pair at (2, 32, 8, 2,432, 128) bf16, unmasked and with
+   row 0 left-padded by 300 (dO zero on its rows without a valid key): the
+   forward's output and logsumexp, then dq, dk and dv, each side from its
+   own forward; then timed at B = 8 beside its bound and SDPA's GQA
+   backward;
+5. cache_path: a random LLaMA-3-8B-width subject (25 layers for hookpoint
    layers.24, bf16, flash attention) feeding a 131,072-latent k=256 fp32 SAE
    (saved with `save_to_disk`, read back through `load_saes`) through
    `FeatureCache` with streaming splits over 4 batches of 8 x 2,048 tokens,
    then `save_splits` and `concate_safetensors`; checks the launch counts,
    the merged entries, the feature ranges and one batch's top-k;
-5. a `kernels` JSON line, the card line, and the result line.
+6. gather_rows (K2), inside the attribution phase before its counted run,
+   on the subject's clean top-k (2,432 tokens x 256 rows of a
+   131,072 x 4,096 fp32 decoder): copy mode bit-exact against
+   `W[idx]`, decode mode within a stated fp32 bound of its plain version,
+   timed beside its bound and `embedding_bag`;
+7. attribution_path: the full 32-layer random LLaMA-3-8B-width subject
+   (bf16, flash attention, LM head) and the 131,072-latent SAE with its
+   decoder (saved, then loaded with `decoder=True`); `fast_attribution_maps`
+   at layers.24 over one 2,432-token prompt, 16 features at feature_batch 8
+   (8 from the clean top-k at the last position, 8 in no token's top-(k+1)
+   pool); checks the launch counts, finite saliency, exact zeros for the 8
+   outside features, and the fast path against the general path for 2
+   features; then a masked run (2 prompts of 512, row 1 left-padded by 100)
+   with exact zeros at the pad positions and the fast path against the
+   general path for 2 features; one chunk is timed stage by stage
+   (CUDA events) and once under torch.profiler;
+8. a `kernels` JSON line, the card line, and the result line.
 
 Needs one CUDA card; exits non-zero without one.  Imports nothing of JAX.
 """
@@ -44,6 +66,30 @@ K3_RTOL = 2e-2
 # bf16 (one ulp is 2^-8 relative) and the kernel rounds the softmax weights
 # to bf16 before the PV product (2^-9 relative each); the plain version keeps
 # them in fp32.  The outputs are averages of N(0, 1) values, |o| < ~4.
+K3_LSE_ATOL = 1e-4
+# K3 logsumexp tolerance, |kernel - plain| <= 1e-4 on rows with a valid key
+# (+inf on both sides on rows without one): each logit sums hd = 128 exact
+# products of bf16 values in fp32, which the two sum in different orders
+# (at most 128 * 2^-24 * sum |qs * k|, about 5e-5 here where the sum is
+# about 7); a logsumexp moves by at most its logits' largest error, plus a
+# few fp32 ulps of |lse| < 10 from exp2/log2 against exp/log.
+K3_BWD_MAX_REL = 2e-2
+K3_BWD_L2_REL = 1e-2
+# K3 backward tolerance, per gradient: max |kernel - plain| <= 2e-2 * max
+# |plain| and ||kernel - plain|| <= 1e-2 * ||plain||.  The outputs are bf16
+# (2^-9 relative rounding), dk and dv of a kv head sum 4 query heads in bf16
+# products, and the kernel rounds P and dS to bf16 as the A operand of the
+# products that consume them (2^-9 relative a term) where the plain version
+# keeps fp32; the sums run over up to 2,432 queries or keys.  Each side
+# starts from its own forward: the kernel's o and lse against the plain
+# version's, so a fault in the forward's lse shows here.
+ATTRIBUTION_L2_REL = 1e-3
+# Fast against general attribution, ||fast - general|| <= 1e-3 * ||general||
+# per feature: the two select the same top-k in the same order, decode it
+# with the same deterministic kernel and run the same kernels row by row, so
+# they can differ only where a library matmul picks another reduction order
+# for another row count (F * B rows against B); one bf16 ulp (2^-8) at a few
+# scattered elements stays well under the bound.
 
 
 def card_line() -> str:
@@ -72,6 +118,29 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def _counted_modules():
+    from multimodal_sae_tpu_torch.ops import block_max, flash_attention, gather_rows
+
+    return {
+        "block_max": (block_max, "launches"),
+        "flash_attention": (flash_attention, "launches"),
+        "flash_attention_bwd_delta": (flash_attention, "bwd_delta_launches"),
+        "flash_attention_bwd_dkdv": (flash_attention, "bwd_dkdv_launches"),
+        "flash_attention_bwd_dq": (flash_attention, "bwd_dq_launches"),
+        "gather_rows": (gather_rows, "launches"),
+    }
+
+
+def reset_kernel_counts() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    for module, attr in _counted_modules().values():
+        setattr(module, attr, 0)
+
+
+def kernel_counts() -> dict:
+    return {name: getattr(module, attr) for name, (module, attr) in _counted_modules().items()}
 
 
 def phase_build() -> str:
@@ -227,6 +296,131 @@ def phase_flash_attention(dev) -> dict:
     return result
 
 
+def _grad_errors(got: torch.Tensor, ref: torch.Tensor, what: str) -> dict:
+    """Hold one gradient of the K3 backward against its plain version."""
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"flash_attention_bwd gave non-finite {what}")
+    diff = got.float() - ref.float()
+    out = {"max_abs_err": diff.abs().max().item(), "max_abs_plain": ref.float().abs().max().item(),
+           "l2_rel": (diff.norm() / ref.float().norm()).item()}
+    if out["max_abs_err"] > K3_BWD_MAX_REL * out["max_abs_plain"] or out["l2_rel"] > K3_BWD_L2_REL:
+        raise AssertionError(f"flash_attention_bwd {what} off: {out}")
+    return out
+
+
+def _check_lse(got: torch.Tensor, ref: torch.Tensor, what: str) -> float:
+    """Hold the forward's logsumexp against the plain version's: +inf at the
+    same rows (those without a valid key), within K3_LSE_ATOL elsewhere."""
+    inf = torch.isinf(ref)
+    if torch.isnan(got).any() or not torch.equal(torch.isinf(got), inf) or bool((got[inf] < 0).any()):
+        raise AssertionError(f"flash_attention lse: non-finite rows differ from the plain version's at {what}")
+    err = (got[~inf] - ref[~inf]).abs().max().item()
+    if not err <= K3_LSE_ATOL:
+        raise AssertionError(f"flash_attention lse off by {err} at {what}")
+    return err
+
+
+def phase_flash_attention_bwd(dev) -> dict:
+    """The K3 forward and backward at the attribution suffix's attention
+    shape (H=32, kvH=8, S=2,432, hd=128, bf16): the kernels' chain (forward
+    with lse, then backward on its o and lse) against the plain pair's at
+    B=2 (the plain versions build (B, 32, S, S) fp32 tensors), unmasked and
+    with row 0 left-padded by 300; then timed at B=8, the suffix's feature
+    chunk."""
+    from multimodal_sae_tpu_torch.ops import flash_attention as fa
+
+    H, kvH, S, hd = 32, 8, 2432, 128
+    scale = hd ** -0.5
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def inputs(B):
+        q = torch.randn(B, H, S, hd, generator=gen, device=dev).to(torch.bfloat16)
+        k = torch.randn(B, kvH, S, hd, generator=gen, device=dev).to(torch.bfloat16)
+        v = torch.randn(B, kvH, S, hd, generator=gen, device=dev).to(torch.bfloat16)
+        do = torch.randn(B, H, S, hd, generator=gen, device=dev).to(torch.bfloat16)
+        return q, k, v, do
+
+    result = {"max_abs_err": 0.0}
+    q, k, v, do = inputs(2)
+    for pad in (0, 300):
+        pad_mask, do_ = None, do
+        if pad:
+            real = torch.ones(2, S, dtype=torch.bool, device=dev)
+            real[0, :pad] = False
+            pad_mask = real.to(torch.int32)
+            # Rows without a valid key (row 0's leading pads) are read by no
+            # caller, so their dO is 0 on every path; the kernel's contract
+            # (dq = 0 there, nothing added to dk, dv) holds the plain
+            # version's only under that condition.
+            do_ = do * real[:, None, :, None]
+        what = f"(2, {H}, {kvH}, {S}, {hd}), left pad {pad}"
+        o, lse = fa.flash_attention_fwd(q, k, v, pad_mask, scale, need_lse=True)
+        o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, pad_mask, scale)
+        torch.cuda.synchronize()
+        lse_err = _check_lse(lse, lse_ref, what)
+        o_err = (o.float() - o_ref.float()).abs()
+        if not bool((o_err <= K3_ATOL + K3_RTOL * o_ref.float().abs()).all()):
+            raise AssertionError(f"flash_attention off by {o_err.max().item()} at {what}")
+        got = fa.flash_attention_bwd(q, k, v, pad_mask, o, lse, do_, scale)
+        ref = fa.flash_attention_bwd_plain(q, k, v, pad_mask, o_ref, lse_ref, do_, scale)
+        torch.cuda.synchronize()
+        errors = {name: _grad_errors(a, b, name) for name, a, b in zip(("dq", "dk", "dv"), got, ref)}
+        if pad and bool(got[0][0, :, :pad].any()):
+            raise AssertionError("flash_attention_bwd: dq not 0 on rows without a valid key")
+        result["max_abs_err"] = max([result["max_abs_err"]] + [e["max_abs_err"] for e in errors.values()])
+        emit({"phase": "flash_attention_bwd_check", "shape": [2, H, kvH, S, hd], "left_pad_row0": pad,
+              "lse_max_abs_err": lse_err, "lse_atol": K3_LSE_ATOL, "lse_inf_rows": int(torch.isinf(lse).sum()),
+              "o_max_abs_err": o_err.max().item(), "errors": errors,
+              "max_rel": K3_BWD_MAX_REL, "l2_rel": K3_BWD_L2_REL})
+        del o, lse, o_ref, lse_ref, o_err, got, ref
+        torch.cuda.empty_cache()
+    del q, k, v, do
+    torch.cuda.empty_cache()
+
+    B = 8
+    q, k, v, do = inputs(B)
+    o, lse = fa.flash_attention_fwd(q, k, v, None, scale, need_lse=True)
+    kernel_ms = time_ms(lambda: fa.flash_attention_bwd(q, k, v, None, o, lse, do, scale))
+    forward_ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, None, scale, need_lse=True))
+    delta = fa.bwd_delta(o, do)
+    delta_ms = time_ms(lambda: fa.bwd_delta(o, do))
+    dkdv_ms = time_ms(lambda: fa.bwd_dkdv(q, k, v, None, lse, do, delta, scale))
+    dq_ms = time_ms(lambda: fa.bwd_dq(q, k, v, None, lse, do, delta, scale))
+    plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, None, o, lse, do, scale), iters=2, warmup=1)
+    # SDPA's backward alone (its forward outside the timing) on the same
+    # kvH = 8 tensors with enable_gqa, so it too sums dk and dv over each
+    # group; and, for comparison, with k and v repeated to H heads (dk and
+    # dv then left at H heads).
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg, is_causal=True, scale=scale, enable_gqa=True)
+    library_ms = time_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True))
+    kr = k.repeat_interleave(H // kvH, dim=1).requires_grad_()
+    vr = v.repeat_interleave(H // kvH, dim=1).requires_grad_()
+    out_r = torch.nn.functional.scaled_dot_product_attention(qg, kr, vr, is_causal=True, scale=scale)
+    repeat_ms = time_ms(lambda: torch.autograd.grad(out_r, (qg, kr, vr), do, retain_graph=True))
+    # The work: 5 products of 2 * hd operations per causal (query, key)
+    # pair (dK/dV kernel 4 of them, dQ kernel 3); q, o, do, dq and k, v,
+    # dk, dv moved once, lse read.
+    pairs = B * H * S * (S + 1) / 2
+    nbytes = (4 * B * H * S * hd + 4 * B * kvH * S * hd) * 2 + B * H * S * 4
+    flops = 10 * hd * pairs
+    bound_ms = max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+    line = {
+        "phase": "flash_attention_bwd", "shape": [B, H, kvH, S, hd], "kernel_ms": kernel_ms,
+        "delta_ms": delta_ms, "dkdv_ms": dkdv_ms, "dq_ms": dq_ms, "forward_with_lse_ms": forward_ms,
+        "plain_ms": plain_ms, "library_ms": library_ms, "library_repeat_kv_ms": repeat_ms,
+        "bound_ms": bound_ms, "bound_by": "operations" if flops / BF16_FLOPS > nbytes / HBM_BYTES_PER_S else "bytes",
+        "delta_bound_ms": 2 * B * H * S * hd * 2 / HBM_BYTES_PER_S * 1e3,
+        "dkdv_bound_ms": 8 * hd * pairs / BF16_FLOPS * 1e3, "dq_bound_ms": 6 * hd * pairs / BF16_FLOPS * 1e3,
+        "tflops": flops / kernel_ms / 1e9,
+    }
+    emit(line)
+    del q, k, v, do, o, lse, delta, qg, kg, vg, out, kr, vr, out_r
+    torch.cuda.empty_cache()
+    result.update({"ms": kernel_ms, **{key: line[key] for key in ("plain_ms", "library_ms", "bound_ms", "bound_by")}})
+    return result
+
+
 def _check_topk_as_sets(latents: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor, k: int):
     """The port's top-k against `torch.topk` on the same latents: equal value
     multisets, and equal index sets up to ties at the k-th value."""
@@ -249,8 +443,6 @@ def phase_cache_path(dev, card: str) -> dict:
     from multimodal_sae_tpu_torch.features import FeatureCache
     from multimodal_sae_tpu_torch.interp_utils import load_saes
     from multimodal_sae_tpu_torch.models.llama import LlamaConfig, LlamaModel
-    from multimodal_sae_tpu_torch.ops import block_max as bm
-    from multimodal_sae_tpu_torch.ops import flash_attention as fa
     from multimodal_sae_tpu_torch.ops import top_k
     from multimodal_sae_tpu_torch.sae import Sae, pre_acts
     from multimodal_sae_tpu_torch.utils.safetensors_io import load_file
@@ -301,16 +493,18 @@ def phase_cache_path(dev, card: str) -> dict:
         fc = CountingCache(lambda b: model.capture(b, [hook]), saes, batch_size=batch_size)
         fc.enable_streaming(save_dir, n_splits=n_splits)
         torch.cuda.reset_peak_memory_stats()
-        bm.launches = 0
-        fa.launches = 0
+        reset_kernel_counts()
         t0 = time.perf_counter()
         fc.run(ctx_len, rows, progress=False)
         torch.cuda.synchronize()
         seconds["run"] = time.perf_counter() - t0
-        launches = {"block_max": bm.launches, "flash_attention": fa.launches}
+        launches = kernel_counts()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        if launches != {"block_max": 2 * n_batches, "flash_attention": 25 * n_batches}:
-            raise AssertionError(f"kernel launches {launches} over {n_batches} batches")
+        expected = {"block_max": 2 * n_batches, "flash_attention": 25 * n_batches,
+                    "flash_attention_bwd_delta": 0, "flash_attention_bwd_dkdv": 0,
+                    "flash_attention_bwd_dq": 0, "gather_rows": 0}
+        if launches != expected:
+            raise AssertionError(f"kernel launches {launches} over {n_batches} batches, expected {expected}")
         t0 = time.perf_counter()
         fc.save_splits(n_splits, save_dir)
         fc.concate_safetensors(n_splits, save_dir)
@@ -375,6 +569,276 @@ def phase_cache_path(dev, card: str) -> dict:
     return {"launches": launches}
 
 
+def check_gather_rows(W: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor, chunk) -> dict:
+    """K2 on the attribution prefix's clean top-k (`idx`, `vals`: tokens x k)
+    of the decoder `W`: copy mode bit-exact against `W[idx]` on the first 128
+    tokens' rows, decode mode within an fp32 bound of its plain version and
+    deterministic, each timed; decode mode also at a chunk's re-selected
+    top-k (`chunk` = (vals, idx) of 8 features stacked)."""
+    import torch.nn.functional as F
+
+    from multimodal_sae_tpu_torch.ops import gather_rows as gr
+
+    N, k = idx.shape
+    d = W.shape[1]
+    flat = idx[:128].reshape(-1)
+    got, ref = gr.gather_rows(W, flat), gr.gather_rows_plain(W, flat)
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+        raise AssertionError("gather_rows differs from W[idx]")
+    copy = {"rows": flat.numel(), "bitexact": True,
+            "kernel_ms": time_ms(lambda: gr.gather_rows(W, flat)),
+            "plain_ms": time_ms(lambda: gr.gather_rows_plain(W, flat)),
+            "bound_ms": (2 * flat.numel() * d * W.element_size() + flat.numel() * 4) / HBM_BYTES_PER_S * 1e3}
+    del got, ref
+
+    got, ref = gr.gather_decode(idx, vals, W), gr.gather_decode_plain(idx, vals, W)
+    again = gr.gather_decode(idx, vals, W)
+    torch.cuda.synchronize()
+    # Both sum k fp32 products in their own order: each differs from the
+    # exact sum by at most k * 2^-24 * sum_j |vals_j| * max |W|.
+    err_bound = 2 * k * 2.0 ** -24 * vals.abs().sum(-1).max().item() * W.abs().max().item()
+    err = (got - ref).abs().max().item()
+    if not (torch.isfinite(got).all() and err <= err_bound):
+        raise AssertionError(f"gather_decode off by {err} (bound {err_bound})")
+    if not torch.equal(got, again):
+        raise AssertionError("gather_decode is not deterministic")
+    del got, ref, again
+    idx_long = idx.long()
+    distinct = torch.unique(idx).numel()
+    nbytes = distinct * d * 4 + N * d * 4 + N * k * 8
+    decode = {
+        "tokens": N, "k": k, "distinct_rows": distinct, "max_abs_err": err, "err_bound": err_bound,
+        "deterministic": True, "kernel_ms": time_ms(lambda: gr.gather_decode(idx, vals, W)),
+        "plain_ms": time_ms(lambda: gr.gather_decode_plain(idx, vals, W), iters=3),
+        "library_ms": time_ms(lambda: F.embedding_bag(idx_long, W, per_sample_weights=vals, mode="sum")),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "no_reuse_gb": N * k * d * 4 / 1e9,
+    }
+    c_vals, c_idx = chunk
+    c_distinct = torch.unique(c_idx).numel()
+    decode_chunk = {
+        "tokens": c_idx.shape[0], "distinct_rows": c_distinct,
+        "kernel_ms": time_ms(lambda: gr.gather_decode(c_idx, c_vals, W)),
+        "library_ms": time_ms(lambda: F.embedding_bag(c_idx.long(), W, per_sample_weights=c_vals, mode="sum")),
+        "bound_ms": (c_distinct * d * 4 + c_idx.numel() * 8 + c_idx.shape[0] * d * 4) / HBM_BYTES_PER_S * 1e3,
+        "no_reuse_gb": c_idx.numel() * d * 4 / 1e9,
+    }
+    emit({"phase": "gather_rows", "W": [W.shape[0], d], "dtype": "float32", "copy": copy,
+          "decode_clean_topk": decode, "decode_chunk_of_8": decode_chunk})
+    torch.cuda.empty_cache()
+    return {"ms": decode["kernel_ms"], "plain_ms": decode["plain_ms"], "bound_ms": decode["bound_ms"],
+            "bound_by": "bytes", "library_ms": decode["library_ms"], "max_abs_err": err}
+
+
+STAGES = ("reselect", "decode", "forward", "backward", "saliency")
+
+
+def time_stages(step, feats: torch.Tensor) -> dict:
+    """Device milliseconds of each stage of one attribution chunk (CUDA
+    events at the step's stage marks)."""
+    marks = {"start": torch.cuda.Event(enable_timing=True)}
+
+    def mark(stage):
+        marks[stage] = torch.cuda.Event(enable_timing=True)
+        marks[stage].record()
+
+    marks["start"].record()
+    step(feats, mark=mark)
+    torch.cuda.synchronize()
+    names = ("start",) + STAGES
+    out = {stage: marks[a].elapsed_time(marks[stage]) for a, stage in zip(names, STAGES)}
+    out["total"] = marks["start"].elapsed_time(marks[STAGES[-1]])
+    return out
+
+
+KERNEL_GROUPS = (
+    ("flash_attention_bwd", ("dkdv_kernel", "dq_kernel", "delta_kernel")),
+    ("flash_attention", ("flash_fwd_kernel",)),
+    ("gather_rows", ("gather_decode_kernel", "gather_rows_kernel")),
+    ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "cublas")),
+)
+
+
+def profile_chunk(step, feats: torch.Tensor) -> dict:
+    """One attribution chunk under torch.profiler: device time by kernel
+    group and the device's busy share of the chunk's wall time.  Reports
+    null where the profiler recorded no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(feats)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or 0
+        if str(getattr(e, "device_type", "")).endswith("CUDA") and us > 0:
+            kernels[e.key] = kernels.get(e.key, 0.0) + us / 1e3
+    busy_ms = sum(kernels.values())
+    groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
+    groups["other"] = 0.0
+    for key, ms in kernels.items():
+        low = key.lower()
+        group = next((name for name, parts in KERNEL_GROUPS if any(p in low for p in parts)), "other")
+        groups[group] += ms
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms or None,
+            "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
+            "by_group_ms": groups if busy_ms else None,
+            "top_kernels_ms": [[key[:80], ms] for key, ms in top]}
+
+
+def _saliency(out: dict, hook: str) -> np.ndarray:
+    sal = np.stack(out[hook])
+    if not np.isfinite(sal).all():
+        raise AssertionError("non-finite saliency")
+    return sal
+
+
+def phase_attribution_path(dev, card: str) -> dict:
+    """Attribution patching at LLaMA-3-8B width (random bf16 weights, all 32
+    layers, LM head) and the released SAE's width (131,072 latents, k=256,
+    fp32, with its decoder), through `fast_attribution_maps`."""
+    from functools import partial
+
+    from multimodal_sae_tpu_torch.config import SaeConfig
+    from multimodal_sae_tpu_torch.device import setup
+    from multimodal_sae_tpu_torch.features.patching import (
+        build_fast_attribution, fast_attribution_maps, general_attribution_maps, get_logit_diff,
+    )
+    from multimodal_sae_tpu_torch.models.llama import LlamaConfig, LlamaModel
+    from multimodal_sae_tpu_torch.sae import Sae
+
+    setup(dev)
+    hook, S, fb, width = "layers.24", 2432, 8, 131072
+    n_suffix = 32 - 25
+    seconds = {}
+    t0 = time.perf_counter()
+    cfg = LlamaConfig(flash_attention=True)
+    model = LlamaModel.random(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    seconds["init_subject"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        t0 = time.perf_counter()
+        Sae(4096, SaeConfig(num_latents=width, k=256), decoder=True, seed=0, device=dev) \
+            .save_to_disk(os.path.join(tmp, hook))
+        sae = Sae.load_from_disk(os.path.join(tmp, hook), decoder=True, device=dev)
+        torch.cuda.synchronize()
+        seconds["init_sae_save_load"] = time.perf_counter() - t0
+
+    rng = np.random.default_rng(1)
+    batch = {"input_ids": rng.integers(0, cfg.vocab_size, size=(1, S))}
+    metric = partial(get_logit_diff, answer_token_indices=torch.tensor([[1000, 2000]], device=dev))
+
+    # Outside the counted run: the prefix once, to choose the features and
+    # feed K2's check; one chunk as warm-up, then one timed stage by stage
+    # and one under the profiler.
+    t0 = time.perf_counter()
+    step = build_fast_attribution(model, hook, sae, batch, metric)
+    k = sae.cfg.k
+    inside = step.wide_idx[-1, :8].long().tolist()  # the last position's 8 largest
+    in_pool = torch.zeros(width, dtype=torch.bool, device=dev)
+    in_pool[step.wide_idx.long().reshape(-1)] = True
+    pool_free = torch.nonzero(~in_pool).squeeze(1).cpu().numpy()
+    outside = sorted(rng.choice(pool_free, size=8, replace=False).tolist())
+    feats = inside + outside
+    chunk = torch.tensor(inside)
+    step(chunk)  # warm-up
+    torch.cuda.synchronize()
+    seconds["prefix_and_warmup_chunk"] = time.perf_counter() - t0
+    stage_ms = time_stages(step, chunk)
+    profile = profile_chunk(step, chunk)
+    k2 = check_gather_rows(sae.params["W_dec"], step.wide_idx[:, :k], step.wide_vals[:, :k],
+                           step.reselect(torch.tensor(inside, device=dev)))
+    del step
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    out = fast_attribution_maps(model, hook, sae, batch, metric, feats, feature_batch=fb, progress=False)
+    torch.cuda.synchronize()
+    seconds["run"] = time.perf_counter() - t0
+    launches = kernel_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    chunks = len(feats) // fb
+    # Prefix: 25 forward attentions, the two block-max levels of the
+    # top-(k+1) pool, the clean decode; per chunk: one decode and the
+    # suffix's 7 attentions forward and backward.
+    expected = {"block_max": 2, "flash_attention": 25 + n_suffix * chunks,
+                "flash_attention_bwd_delta": n_suffix * chunks, "flash_attention_bwd_dkdv": n_suffix * chunks,
+                "flash_attention_bwd_dq": n_suffix * chunks, "gather_rows": 1 + chunks}
+    if launches != expected:
+        raise AssertionError(f"attribution kernel launches {launches}, expected {expected}")
+    sal = _saliency(out, hook)  # (16, 1, S)
+    if sal.shape != (len(feats), 1, S):
+        raise AssertionError(f"saliency shape {sal.shape}")
+    if np.any(sal[8:] != 0):
+        raise AssertionError("saliency of a feature outside every top-k is not exactly 0")
+    if not np.any(sal[:8] != 0):
+        raise AssertionError("saliency of the in-top-k features is all 0")
+
+    # The general path (full spliced forward and backward) for 2 features.
+    t0 = time.perf_counter()
+    general = general_attribution_maps(model, {hook: sae}, batch, metric, inside[:2], progress=False)
+    torch.cuda.synchronize()
+    seconds["general_2_features"] = time.perf_counter() - t0
+    agreement = []
+    for f, g in zip(sal[:2], general[hook]):
+        rel = float(np.linalg.norm(f - g) / np.linalg.norm(g))
+        agreement.append(rel)
+        if not rel <= ATTRIBUTION_L2_REL:
+            raise AssertionError(f"fast and general attribution differ: relative L2 {rel}")
+
+    # Masked run: 2 prompts of 512 tokens, row 1 left-padded by 100.
+    S2, pad = 512, 100
+    mask = np.ones((2, S2), dtype=np.int64)
+    mask[1, :pad] = 0
+    batch2 = {"input_ids": rng.integers(0, cfg.vocab_size, size=(2, S2)), "attention_mask": mask}
+    metric2 = partial(get_logit_diff, answer_token_indices=torch.tensor([[1000, 2000], [3000, 4000]], device=dev))
+    step2 = build_fast_attribution(model, hook, sae, batch2, metric2)
+    feats2 = step2.wide_idx[S2 - 1, :4].long().tolist() + step2.wide_idx[2 * S2 - 1, :4].long().tolist()
+    del step2
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    out2 = fast_attribution_maps(model, hook, sae, batch2, metric2, feats2, feature_batch=fb, progress=False)
+    torch.cuda.synchronize()
+    seconds["masked_run"] = time.perf_counter() - t0
+    launches2 = kernel_counts()
+    expected2 = {"block_max": 2, "flash_attention": 25 + n_suffix, "flash_attention_bwd_delta": n_suffix,
+                 "flash_attention_bwd_dkdv": n_suffix, "flash_attention_bwd_dq": n_suffix, "gather_rows": 2}
+    if launches2 != expected2:
+        raise AssertionError(f"masked attribution kernel launches {launches2}, expected {expected2}")
+    sal2 = _saliency(out2, hook)  # (8, 2, 512)
+    if np.any(sal2[:, 1, :pad] != 0):
+        raise AssertionError("saliency at pad positions is not exactly 0")
+    if not np.any(sal2[:, 1, pad:] != 0):
+        raise AssertionError("saliency at row 1's real positions is all 0")
+    # The general path on the masked batch for one feature of each row's
+    # top-k (the fast path tiles the mask F times; the general path not).
+    general2 = general_attribution_maps(model, {hook: sae}, batch2, metric2, [feats2[0], feats2[4]], progress=False)
+    for f, g in zip(sal2[[0, 4]], general2[hook]):
+        rel = float(np.linalg.norm(f - g) / np.linalg.norm(g))
+        agreement.append(rel)
+        if not rel <= ATTRIBUTION_L2_REL:
+            raise AssertionError(f"fast and general attribution differ on the masked batch: relative L2 {rel}")
+
+    emit({
+        "phase": "attribution_path", "subject": "LLaMA-3-8B widths, 32 layers, bf16, flash attention, LM head",
+        "sae": "4096 -> 131072 latents, k=256, fp32, decoder", "hookpoint": hook, "prompt_tokens": S,
+        "features": len(feats), "feature_batch": fb, "seconds": seconds,
+        "ms_per_feature": seconds["run"] * 1e3 / len(feats), "features_per_s": len(feats) / seconds["run"],
+        "chunk_stage_ms": stage_ms, "chunk_profile": profile, "launches": launches, "peak_gb": peak_gb,
+        "outside_topk_exact_zero": True, "fast_vs_general_l2_rel": agreement[:2], "l2_rel_bound": ATTRIBUTION_L2_REL,
+        "masked": {"prompts": 2, "tokens": S2, "left_pad_row1": pad, "features": len(feats2),
+                   "launches": launches2, "pad_positions_exact_zero": True,
+                   "fast_vs_general_l2_rel": agreement[2:]},
+        "card": card,
+    })
+    return {"launches": {name: launches[name] + launches2[name] for name in launches}, "k2": k2}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card", file=sys.stderr)
@@ -384,20 +848,40 @@ def main() -> int:
     card = phase_build()
     k1 = phase_block_max(dev)
     k3 = phase_flash_attention(dev)
+    k3_bwd = phase_flash_attention_bwd(dev)
     cache = phase_cache_path(dev, card)
+    torch.cuda.empty_cache()
+    attribution = phase_attribution_path(dev, card)
+    runs = (cache["launches"], attribution["launches"])
+    total = {name: sum(run[name] for run in runs) for name in runs[0]}
+    k2 = attribution["k2"]
+    bwd_launches = {part: total[f"flash_attention_bwd_{part}"] for part in ("delta", "dkdv", "dq")}
     kernels_line = {"kernels": [
         {"name": "block_max", "route": "cuda",
          "source": "multimodal_sae_tpu_torch/csrc/block_max.cu",
          "replaces": "multimodal_sae_tpu/ops/pallas_topk.py:48",
-         "launches": cache["launches"]["block_max"], "max_abs_err": k1["max_abs_err"],
+         "launches": total["block_max"], "max_abs_err": k1["max_abs_err"],
          "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
          "bound_by": "bytes", "library_ms": k1["library_ms"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "multimodal_sae_tpu_torch/csrc/flash_attention.cu",
          "replaces": "multimodal_sae_tpu/models/llama.py:341",
-         "launches": cache["launches"]["flash_attention"], "max_abs_err": k3["max_abs_err"],
+         "launches": total["flash_attention"], "max_abs_err": k3["max_abs_err"],
          "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": k3["library_ms"]},
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "multimodal_sae_tpu_torch/csrc/flash_attention_bwd.cu",
+         "replaces": "multimodal_sae_tpu/models/llama.py:341 (jax flash_attention.py:1121 dkv, :1456 dq)",
+         "launches": bwd_launches["delta"] + bwd_launches["dkdv"] + bwd_launches["dq"],
+         "launches_by_kernel": bwd_launches, "max_abs_err": k3_bwd["max_abs_err"],
+         "ms": k3_bwd["ms"], "plain_ms": k3_bwd["plain_ms"], "bound_ms": k3_bwd["bound_ms"],
+         "bound_by": k3_bwd["bound_by"], "library_ms": k3_bwd["library_ms"]},
+        {"name": "gather_rows", "route": "cuda",
+         "source": "multimodal_sae_tpu_torch/csrc/gather_rows.cu",
+         "replaces": "multimodal_sae_tpu/ops/pallas_gather.py:50",
+         "launches": total["gather_rows"], "max_abs_err": k2["max_abs_err"],
+         "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
+         "bound_by": k2["bound_by"], "library_ms": k2["library_ms"]},
     ]}
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit(kernels_line)

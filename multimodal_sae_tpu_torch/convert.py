@@ -18,6 +18,8 @@ import torch
 from .device import DeviceLike, resolve_device
 
 PROJECTIONS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
+"""Per-layer matrices stored (in, out) by the JAX package, (out, in) here;
+the untied `lm_head` ((D, V) there, (V, D) here) crosses the same way."""
 
 
 def tensor_from_numpy(a, device: DeviceLike = None) -> torch.Tensor:
@@ -52,9 +54,9 @@ def sae_params_to_jax(params: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarra
 
 def llama_params_from_jax(params: Mapping, device: DeviceLike = None) -> dict:
     """A JAX LLaMA param tree (per-layer list, or stacked by
-    `stack_layer_params`) -> the port's tree: `embed_tokens`, `norm`, and
-    `layers` as a list of dicts with (out, in) projections.  `lm_head` is
-    dropped: capture never reads it."""
+    `stack_layer_params`) -> the port's tree: `embed_tokens`, `norm`,
+    `layers` as a list of dicts with (out, in) projections, and `lm_head`
+    as (V, D) when the tree has one (an untied head)."""
     layers = params["layers"]
     if isinstance(layers, Mapping):  # stacked: one leading layer axis
         arrays = {name: np.asarray(a) for name, a in layers.items()}
@@ -65,23 +67,29 @@ def llama_params_from_jax(params: Mapping, device: DeviceLike = None) -> dict:
         a = np.asarray(a)
         return tensor_from_numpy(a.T if name in PROJECTIONS else a, device)
 
-    return {
+    out = {
         "embed_tokens": tensor_from_numpy(params["embed_tokens"], device),
         "norm": tensor_from_numpy(params["norm"], device),
         "layers": [{name: convert(name, a) for name, a in layer.items()} for layer in layers],
     }
+    if "lm_head" in params:
+        out["lm_head"] = tensor_from_numpy(np.asarray(params["lm_head"]).T, device)
+    return out
 
 
 def llama_params_to_jax(params: Mapping) -> dict:
     """The port's LLaMA tree -> numpy arrays in the JAX package's per-layer
-    layout, (in, out) projections (no `lm_head`)."""
+    layout, (in, out) projections and `lm_head` (D, V) when there is one."""
 
     def convert(name, t):
         a = tensor_to_numpy(t)
         return np.ascontiguousarray(a.T) if name in PROJECTIONS else a
 
-    return {
+    out = {
         "embed_tokens": tensor_to_numpy(params["embed_tokens"]),
         "norm": tensor_to_numpy(params["norm"]),
         "layers": [{name: convert(name, t) for name, t in layer.items()} for layer in params["layers"]],
     }
+    if "lm_head" in params:
+        out["lm_head"] = np.ascontiguousarray(tensor_to_numpy(params["lm_head"]).T)
+    return out

@@ -29,6 +29,11 @@
 // accumulate); the QK^T accumulator layout is reused as the PV A-operand
 // without a shared-memory round trip.  The key loop stops at the tile holding
 // the block's last query.
+//
+// Optional output for the backward (csrc/flash_attention_bwd.cu): lse, the
+// fp32 natural-log logsumexp of each row's scaled, masked logits, (B, H, S);
+// +inf for a row with no valid key, so the backward's rebuilt weights are 0
+// there.  With a null pointer nothing extra is written.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -79,8 +84,8 @@ __global__ void __launch_bounds__(THREADS)
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
                      const int* __restrict__ kv_valid,
-                     __nv_bfloat16* __restrict__ o, int H, int kvH, int S,
-                     float scale) {
+                     __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                     int H, int kvH, int S, float scale) {
   constexpr int KS = HD + 8;  // K row stride in shared memory (elements)
   __shared__ __align__(16) __nv_bfloat16 Ks[BN * KS];
   __shared__ __align__(16) __nv_bfloat16 Vt[HD * VS];
@@ -243,6 +248,12 @@ __global__ void __launch_bounds__(THREADS)
     __syncthreads();
   }
 
+  if (lse != nullptr && t == 0) {
+    float* lp = lse + (size_t)bh * S;
+    if (r0 < S) lp[r0] = empty0 ? INFINITY : (m0 + log2f(l0)) / LOG2E;
+    if (r1 < S) lp[r1] = empty1 ? INFINITY : (m1 + log2f(l1)) / LOG2E;
+  }
+
   const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
   const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
 #pragma unroll
@@ -261,14 +272,16 @@ __global__ void __launch_bounds__(THREADS)
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, const void* kv_valid,
-           void* o, int B, int H, int kvH, int S, float scale, void* stream) {
+           void* o, void* lse, int B, int H, int kvH, int S, float scale,
+           void* stream) {
   dim3 grid((S + BM - 1) / BM, B * H);
   flash_fwd_kernel<HD><<<grid, THREADS, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const __nv_bfloat16*>(q),
       reinterpret_cast<const __nv_bfloat16*>(k),
       reinterpret_cast<const __nv_bfloat16*>(v),
       reinterpret_cast<const int*>(kv_valid),
-      reinterpret_cast<__nv_bfloat16*>(o), H, kvH, S, scale);
+      reinterpret_cast<__nv_bfloat16*>(o), reinterpret_cast<float*>(lse), H, kvH,
+      S, scale);
   return (int)cudaGetLastError();
 }
 
@@ -278,13 +291,15 @@ extern "C" {
 
 // q, o: (B, H, S, hd) bf16 contiguous; k, v: (B, kvH, S, hd) bf16
 // contiguous with H % kvH == 0; hd 64 or 128; kv_valid: (B, S) int32 or NULL
-// (all valid).  scale: the softmax scale already rounded to bf16.  Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for another hd.
+// (all valid); lse: (B, H, S) fp32 or NULL (not written).  scale: the
+// softmax scale already rounded to bf16.  Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for another hd.
 int flash_attention_fwd_bf16(const void* q, const void* k, const void* v,
-                             const void* kv_valid, void* o, int B, int H,
-                             int kvH, int S, int hd, float scale, void* stream) {
-  if (hd == 128) return launch<128>(q, k, v, kv_valid, o, B, H, kvH, S, scale, stream);
-  if (hd == 64) return launch<64>(q, k, v, kv_valid, o, B, H, kvH, S, scale, stream);
+                             const void* kv_valid, void* o, void* lse, int B,
+                             int H, int kvH, int S, int hd, float scale,
+                             void* stream) {
+  if (hd == 128) return launch<128>(q, k, v, kv_valid, o, lse, B, H, kvH, S, scale, stream);
+  if (hd == 64) return launch<64>(q, k, v, kv_valid, o, lse, B, H, kvH, S, scale, stream);
   return (int)cudaErrorInvalidValue;
 }
 

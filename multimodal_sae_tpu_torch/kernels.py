@@ -25,6 +25,8 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 CUDA_SOURCES = {
     "block_max": CSRC / "block_max.cu",
     "flash_attention": CSRC / "flash_attention.cu",
+    "flash_attention_bwd": CSRC / "flash_attention_bwd.cu",
+    "gather_rows": CSRC / "gather_rows.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -15,12 +15,12 @@ import torch
 from ..device import DeviceLike
 
 _UNPORTED = {
-    "load_in_8bit": "slice 7 (int8 quantisation)",
-    "int8_matmul": "slice 7 (int8 quantisation)",
-    "int8_vision": "slice 7 (int8 quantisation)",
-    "sae_int8": "slice 7 (int8 quantisation)",
-    "tp": "slice 6 (multi-process and tensor parallelism)",
-    "dp": "slice 6 (multi-process and tensor parallelism)",
+    "load_in_8bit": "§1, int8 quantisation",
+    "int8_matmul": "§1, int8 quantisation",
+    "int8_vision": "§1, int8 quantisation",
+    "sae_int8": "§1, int8 quantisation",
+    "tp": "§1, multi-process and tensor parallelism",
+    "dp": "§1, multi-process and tensor parallelism",
 }
 
 
@@ -50,8 +50,8 @@ def load_subject_model(
 
     if _is_llava_checkpoint(model_name_or_path):
         raise NotImplementedError(
-            "LLaVA-NeXT subjects are not ported yet: ROADMAP.md slice 5 "
-            "(LLaVA-NeXT, CLIP and the image cache)"
+            "LLaVA-NeXT subjects are not ported yet: ROADMAP.md §1, "
+            "LLaVA-NeXT, CLIP and the image cache"
         )
     params, cfg = load_llama(
         model_name_or_path, dtype=dtype, device=device, truncate_layers=truncate_layers

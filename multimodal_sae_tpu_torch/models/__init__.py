@@ -1,5 +1,5 @@
 from .api import ActivationSource, SyntheticActivationSource
-from .llama import LlamaConfig, LlamaModel, llama_forward
+from .llama import LlamaConfig, LlamaModel, llama_forward, pad_text_rows
 
 __all__ = [
     "ActivationSource",
@@ -7,4 +7,5 @@ __all__ = [
     "LlamaConfig",
     "LlamaModel",
     "llama_forward",
+    "pad_text_rows",
 ]

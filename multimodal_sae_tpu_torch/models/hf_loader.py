@@ -43,8 +43,10 @@ def llama_params_from_state_dict(
     """Map HF LlamaForCausalLM / LlamaModel keys to the port's tree.
 
     `prefix` is "model." for LlamaForCausalLM and "" for a bare LlamaModel.
-    Layers past `cfg.num_hidden_layers` stay off the device.  The LM head is
-    not loaded: capture never reads it."""
+    Layers past `cfg.num_hidden_layers` stay off the device.  An untied
+    checkpoint's `lm_head.weight` is loaded as `lm_head`; a missing one is
+    an error, as in the JAX package: falling back to the embedding would
+    make every logit wrong."""
 
     def get(key):
         return sd[key].to(device=device, dtype=dtype)
@@ -64,11 +66,20 @@ def llama_params_from_state_dict(
         {name: get(f"{prefix}layers.{i}.{key}") for name, key in layer_keys.items()}
         for i in range(cfg.num_hidden_layers)
     ]
-    return {
+    params = {
         "embed_tokens": get(f"{prefix}embed_tokens.weight"),
         "layers": layers,
         "norm": get(f"{prefix}norm.weight"),
     }
+    if not cfg.tie_word_embeddings:
+        head = next((key for key in ("lm_head.weight", f"{prefix}lm_head.weight") if key in sd), None)
+        if head is None:
+            raise KeyError(
+                "untied checkpoint (tie_word_embeddings=false) but no lm_head.weight; "
+                "refusing to fall back to embed_tokens: logits would be wrong"
+            )
+        params["lm_head"] = get(head)
+    return params
 
 
 def load_llama(

@@ -1,17 +1,22 @@
-"""LLaMA-3 decoder, capture path (multimodal_sae_tpu/models/llama.py).
+"""LLaMA-3 decoder (multimodal_sae_tpu/models/llama.py): capture, full
+forward with interventions and logits, and the suffix forward of
+attribution patching.
 
-`llama_forward` returns the post-layer residual hidden states at the
-requested hookpoints ("layers.{i}") and runs no layer above the last one:
-the JAX package gets that from XLA's dead-code elimination, PyTorch runs
-eagerly, so the loop stops explicitly.  Numerics follow HF `LlamaModel`:
-RMSNorm variance and RoPE cos/sin in fp32, softmax in fp32.  Projection
-weights keep PyTorch's (out, in) layout (`F.linear`), as HF checkpoints store
-them; `convert.py` carries the JAX package's (in, out) matrices across.
+`llama_forward` returns {"captured", "hidden", "logits"} as the JAX package
+does.  A capture-only call (no logits, no hidden) runs no layer above the
+deepest hookpoint: the JAX package gets that from XLA's dead-code
+elimination, PyTorch runs eagerly, so the loop stops explicitly.  Numerics
+follow HF `LlamaModel`: RMSNorm variance and RoPE cos/sin in fp32, softmax
+in fp32.  Projection weights keep PyTorch's (out, in) layout (`F.linear`),
+as HF checkpoints store them; `convert.py` carries the JAX package's
+(in, out) matrices across.  The forward runs under autograd when the caller
+differentiates (attribution takes the gradient at a splice); `capture` runs
+without it.
 
 With `LlamaConfig.flash_attention` the attention runs through kernel K3
-(ops/flash_attention.py) with k and v left at kvH heads; eager attention
-repeats them, as HF does.  Generation, interventions, logits and
-`forward_from_layer` come with the interventions slice.
+(ops/flash_attention.py, forward and backward) with k and v left at kvH
+heads; eager attention repeats them, as HF does.  The KV cache, generation
+and remat come with the steering slice.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -201,18 +206,35 @@ def hookpoint_layer_idx(hookpoint: str) -> int:
     return int(tail)
 
 
-@torch.no_grad()
+InterventionFn = Callable[[torch.Tensor], torch.Tensor]
+
+
 def llama_forward(
     params: dict,
     cfg: LlamaConfig,
-    input_ids: torch.Tensor,
+    input_ids: Optional[torch.Tensor] = None,
     *,
+    inputs_embeds: Optional[torch.Tensor] = None,
     attention_mask: Optional[torch.Tensor] = None,
     capture: Sequence[str] = (),
-) -> Dict[str, torch.Tensor]:
-    """Capture forward: {hookpoint: (B, S, D) post-layer residual}.  Runs
-    layers 0..(deepest captured layer) and no further."""
-    h = params["embed_tokens"][input_ids]
+    interventions: Optional[Dict[str, InterventionFn]] = None,
+    return_logits: bool = True,
+    return_hidden: bool = False,
+    start_layer: int = 0,
+) -> dict:
+    """Full forward: {"captured": {hookpoint: (B, S, D) post-layer residual},
+    "hidden": final post-norm states (with `return_hidden`), "logits"
+    (with `return_logits`)}.
+
+    `interventions` {hookpoint: fn} replace layer i's output h by fn(h),
+    keyed by layer index (either hookpoint spelling), before it is captured.
+    `start_layer > 0` resumes mid-stack: `inputs_embeds` is then the hidden
+    state entering layer `start_layer`, and only layers [start_layer,
+    num_hidden_layers) run; this is the suffix of attribution patching.
+    Without logits or hidden, the loop stops after the deepest hookpoint."""
+    if start_layer and inputs_embeds is None:
+        raise ValueError("start_layer needs inputs_embeds (the state entering that layer)")
+    h = params["embed_tokens"][input_ids] if inputs_embeds is None else inputs_embeds
     B, S, _ = h.shape
     positions = torch.arange(S, device=h.device)[None, :]
     cos, sin = rope_cos_sin(positions, cfg.head_dim_, cfg.rope_theta, cfg.rope_scaling_dict)
@@ -221,18 +243,95 @@ def llama_forward(
         mask, pad_mask = None, attention_mask
     else:
         mask, pad_mask = causal_mask(S, attention_mask, h.device), None
+    iv_by_idx = {hookpoint_layer_idx(k): fn for k, fn in (interventions or {}).items()}
     cap_by_idx = {hookpoint_layer_idx(c): c for c in capture}
-    if not cap_by_idx:
-        return {}
-    last = max(cap_by_idx)
-    if last >= len(params["layers"]):
-        raise ValueError(f"hookpoint layer {last} is past the subject's {len(params['layers'])} layers")
+    end = cfg.num_hidden_layers
+    if not (return_logits or return_hidden):
+        end = max(cap_by_idx, default=start_layer - 1) + 1
+    if end > len(params["layers"]):
+        raise ValueError(f"layer {end - 1} is past the subject's {len(params['layers'])} layers")
     captured = {}
-    for i in range(last + 1):
+    for i in range(start_layer, end):
         h = decoder_layer(params["layers"][i], cfg, h, cos, sin, mask, pad_mask)
+        if i in iv_by_idx:
+            h = iv_by_idx[i](h)
         if i in cap_by_idx:
             captured[cap_by_idx[i]] = h
-    return captured
+    out = {"captured": captured}
+    if return_logits or return_hidden:
+        h_final = rms_norm(h, params["norm"], cfg.rms_norm_eps)
+        if return_hidden:
+            out["hidden"] = h_final
+        if return_logits:
+            out["logits"] = lm_head_logits(params, h_final)
+    return out
+
+
+def lm_head_logits(params: dict, h_final: torch.Tensor) -> torch.Tensor:
+    """Post-norm hidden states -> vocabulary logits, through `lm_head`
+    (V, D) or, for a tied head, the embedding table."""
+    head = params.get("lm_head")
+    return F.linear(h_final, params["embed_tokens"] if head is None else head)
+
+
+def suffix_params_above(params: dict, layer_idx: int) -> dict:
+    """The weights the suffix forward reads: the layers above `layer_idx`,
+    final norm and LM head (the tensors themselves, no copies).  The JAX
+    package hands these to its jitted suffix so that no slice of the stacked
+    weights is copied; here `forward_from_layer_above` reads the layers it
+    runs from `params` directly, so nothing on the path needs this dict."""
+    out = {k: v for k, v in params.items() if k != "layers"}
+    out["layers"] = params["layers"][layer_idx + 1 :]
+    return out
+
+
+def last_attended(attention_mask: torch.Tensor) -> torch.Tensor:
+    """(B,) index of each row's last 1: the last real token whichever side
+    the padding is on."""
+    S = attention_mask.shape[1]
+    return S - 1 - torch.argmax(attention_mask.flip(1).to(torch.int32), dim=1)
+
+
+def forward_from_layer_above(
+    params: dict,
+    cfg: LlamaConfig,
+    hidden: torch.Tensor,
+    layer_idx: int,
+    attention_mask: Optional[torch.Tensor] = None,
+    last_logit_only: bool = True,
+) -> torch.Tensor:
+    """Resume the forward from layer `layer_idx`'s output `hidden`; only the
+    layers above it run.  `last_logit_only` projects only each row's last
+    attended position to the vocabulary: (B, 1, V)."""
+    out = llama_forward(
+        params, cfg, inputs_embeds=hidden, attention_mask=attention_mask,
+        start_layer=layer_idx + 1, return_logits=not last_logit_only, return_hidden=last_logit_only,
+    )
+    if not last_logit_only:
+        return out["logits"]
+    h = out["hidden"]
+    if attention_mask is not None:
+        last = last_attended(attention_mask).to(h.device)
+        h = h[torch.arange(h.shape[0], device=h.device), last][:, None]
+    else:
+        h = h[:, -1:]
+    return lm_head_logits(params, h)
+
+
+def pad_text_rows(rows) -> dict:
+    """Right-pad ragged token-id rows into a batch dict with an attention
+    mask (none when already rectangular, which keeps the attention
+    mask-free)."""
+    rows = [np.asarray(r, dtype=np.int64).reshape(-1) for r in rows]
+    width = max((len(r) for r in rows), default=0)
+    if all(len(r) == width for r in rows):
+        return {"input_ids": np.stack(rows) if rows else np.zeros((0, 0), np.int64)}
+    ids = np.zeros((len(rows), width), dtype=np.int64)
+    mask = np.zeros((len(rows), width), dtype=np.int64)
+    for i, r in enumerate(rows):
+        ids[i, : len(r)] = r
+        mask[i, : len(r)] = 1
+    return {"input_ids": ids, "attention_mask": mask}
 
 
 def init_llama_params(
@@ -243,7 +342,7 @@ def init_llama_params(
 ) -> dict:
     """Random init (normal, scaled by fan-in^-0.5 as the JAX package's
     `init_llama_params`) for runs without a checkpoint, drawn on `device`
-    from `generator`.  No LM head: capture never reads it."""
+    from `generator`; an `lm_head` (V, D) unless `tie_word_embeddings`."""
     D, I, V = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
     H, kvH, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
 
@@ -266,11 +365,14 @@ def init_llama_params(
         }
         for _ in range(cfg.num_hidden_layers)
     ]
-    return {
+    params = {
         "embed_tokens": mat((V, D), scale=0.02),
         "layers": layers,
         "norm": torch.ones(D, dtype=dtype, device=device),
     }
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = mat((V, D), scale=0.02)
+    return params
 
 
 class LlamaModel:
@@ -304,14 +406,68 @@ class LlamaModel:
     def resolve_widths(self, hookpoints: List[str]) -> Dict[str, int]:
         return {h: self.cfg.hidden_size for h in hookpoints}
 
-    def capture(self, batch: dict, hookpoints: List[str]) -> Dict[str, torch.Tensor]:
-        ids = torch.as_tensor(np.asarray(batch["input_ids"]), dtype=torch.long)
+    def _mask(self, batch: dict) -> Optional[torch.Tensor]:
         amask = batch.get("attention_mask")
-        if amask is not None:
-            amask = np.asarray(amask)
-            # An all-ones mask masks nothing: drop it, as the JAX side does.
-            amask = None if amask.all() else torch.as_tensor(amask, device=self.device)
+        if amask is None:
+            return None
+        amask = np.asarray(amask)
+        # An all-ones mask masks nothing: drop it, as the JAX side does.
+        return None if amask.all() else torch.as_tensor(amask, device=self.device)
+
+    def _ids_and_mask(self, batch: dict):
+        ids = torch.as_tensor(np.asarray(batch["input_ids"]), dtype=torch.long).to(self.device)
+        return ids, self._mask(batch)
+
+    @torch.no_grad()
+    def capture(self, batch: dict, hookpoints: List[str]) -> Dict[str, torch.Tensor]:
+        ids, amask = self._ids_and_mask(batch)
         return llama_forward(
-            self.params, self.cfg, ids.to(self.device),
-            attention_mask=amask, capture=tuple(hookpoints),
+            self.params, self.cfg, ids, attention_mask=amask, capture=tuple(hookpoints),
+            return_logits=False,
+        )["captured"]
+
+    def prepare_inputs(self, images=None, input_ids=None, prompt_ids=None) -> dict:
+        """Text-only batch from token-id rows, right-padded with an attention
+        mask when ragged (the LLaVA subject's `prepare_inputs` contract)."""
+        if images is not None:
+            raise ValueError(
+                "LlamaModel is text-only; image inputs need a LLaVA checkpoint (LlavaNextModel)"
+            )
+        return pad_text_rows(input_ids if input_ids is not None else prompt_ids)
+
+    def forward(
+        self,
+        batch: dict,
+        capture: Sequence[str] = (),
+        interventions: Optional[Dict[str, InterventionFn]] = None,
+        return_logits: bool = True,
+    ) -> dict:
+        """Full forward with capture and interventions (the general SAE-splice
+        path's entry point); runs under autograd when the caller's
+        interventions carry tensors that require grad."""
+        ids, amask = self._ids_and_mask(batch)
+        return llama_forward(
+            self.params, self.cfg, ids, attention_mask=amask, capture=tuple(capture),
+            interventions=interventions, return_logits=return_logits,
+        )
+
+    def suffix_params(self, hookpoint: str) -> dict:
+        """The weights above `hookpoint`, final norm and LM head (see
+        `suffix_params_above`)."""
+        return suffix_params_above(self.params, hookpoint_layer_idx(hookpoint))
+
+    def forward_from_layer(
+        self,
+        hidden: torch.Tensor,
+        hookpoint: str,
+        batch: dict,
+        last_logit_only: bool = True,
+    ) -> torch.Tensor:
+        """Resume the forward from `hookpoint`'s (possibly spliced) output
+        `hidden`; only the layers above it run.  With `last_logit_only`, the
+        logits of each row's last attended position, (B, 1, V): the
+        logit-diff metric reads nothing else."""
+        return forward_from_layer_above(
+            self.params, self.cfg, hidden, hookpoint_layer_idx(hookpoint),
+            attention_mask=self._mask(batch), last_logit_only=last_logit_only,
         )

@@ -1,20 +1,26 @@
-"""Causal flash-attention forward: kernel K3 (`csrc/flash_attention.cu`) and
-its plain PyTorch version.
+"""Causal flash attention, forward and backward: kernels K3
+(`csrc/flash_attention.cu`, `csrc/flash_attention_bwd.cu`) and their plain
+PyTorch versions.
 
-Replaces the forward of the Pallas TPU kernel that
-multimodal_sae_tpu/models/llama.py::flash_attention calls.  Same signature
-and (B, H, S, hd) layout; k and v may carry kvH <= H heads (grouped-query
+Replaces the Pallas TPU kernel that multimodal_sae_tpu/models/llama.py::
+flash_attention calls, forward and custom VJP.  Same signature and
+(B, H, S, hd) layout; k and v may carry kvH <= H heads (grouped-query
 attention), indexed as h // (H // kvH) without materialising the repeat.
-The TPU wrapper's pad-to-128/512 bucketing is a TPU mechanism: the kernel
-masks its own ragged edge.
+The TPU wrapper's pad-to-128/512 bucketing is a TPU mechanism: the kernels
+mask their own ragged edge.  `flash_attention` is differentiable: under
+autograd it runs `FlashAttention`, whose forward keeps the rows' logsumexp
+and whose backward is the K3 backward on CUDA and `flash_attention_bwd_plain`
+on the CPU.
 
-Bound on an H100: tensor-core operations, 2*B*H*S^2*hd causal FLOPs over
-989 TFLOP/s, about 0.28 ms per layer at B=8, H=32, S=2048, hd=128."""
+Bounds on an H100: tensor-core operations, 2 products of 2 * hd per causal
+(query, valid key) pair forward and 5 backward, over 989 TFLOP/s: about
+0.28 ms forward per layer at B=8, H=32, S=2048, hd=128, and 0.98 ms backward
+at B=8, S=2432."""
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,7 +28,16 @@ import torch
 from .. import kernels
 
 launches = 0
-"""Kernel launches so far; a run sets it to 0 and reads it after."""
+"""Forward kernel launches so far; a run sets it to 0 and reads it after."""
+
+bwd_delta_launches = 0
+"""Launches of the backward's D pass, rowsum(o * do)."""
+
+bwd_dkdv_launches = 0
+"""Launches of the backward's dK/dV kernel."""
+
+bwd_dq_launches = 0
+"""Launches of the backward's dQ kernel."""
 
 DEFAULT_MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 """The additive mask of jax's `mha_reference` (its DEFAULT_MASK_VALUE)."""
@@ -46,6 +61,47 @@ def _check_shapes(q, k, v, pad_mask):
         raise ValueError(f"pad_mask must be (B, S)={(B, S)}, got {tuple(pad_mask.shape)}")
 
 
+def _scaled(q: torch.Tensor, scale: float) -> torch.Tensor:
+    """q * scale in q's dtype, as the JAX wrapper folds it (llama.py:330)."""
+    return q * torch.tensor(scale, dtype=q.dtype, device=q.device)
+
+
+def _masked_logits(qs, k, pad_mask):
+    """fp32 logits qs . k over (B, H, S, S) plus jax's finite additive mask,
+    and the boolean mask (causal and valid key)."""
+    H, kvH = qs.shape[1], k.shape[1]
+    if kvH != H:
+        k = k.repeat_interleave(H // kvH, dim=1)
+    S = qs.shape[2]
+    logits = torch.matmul(qs.float(), k.float().transpose(-1, -2))
+    mask = torch.ones(S, S, dtype=torch.bool, device=qs.device).tril()[None, None]
+    if pad_mask is not None:
+        mask = mask & pad_mask.bool()[:, None, None, :]
+    return logits + torch.where(mask, 0.0, DEFAULT_MASK_VALUE), mask
+
+
+def flash_attention_fwd_plain(q, k, v, pad_mask, scale) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse): the plain forward (`flash_attention_plain`) and its fp32
+    row logsumexp (B, H, S), +inf on rows with no valid key."""
+    _check_shapes(q, k, v, pad_mask)
+    H, kvH = q.shape[1], k.shape[1]
+    logits, mask = _masked_logits(_scaled(q, scale), k, pad_mask)
+    if kvH != H:
+        v = v.repeat_interleave(H // kvH, dim=1)
+    S = q.shape[2]
+    m = logits.amax(-1, keepdim=True)
+    e = torch.exp(logits - m)
+    denom = e.sum(-1, keepdim=True)
+    out = torch.matmul(e / denom, v.float())
+    lse = (m + torch.log(denom)).squeeze(-1)
+    if pad_mask is not None:
+        empty = ~mask.any(-1, keepdim=True)  # (B, 1, S, 1)
+        fill = v.float().sum(2, keepdim=True) / (-(-S // PAD_BUCKET) * PAD_BUCKET)
+        out = torch.where(empty, fill, out)
+        lse = lse.masked_fill(empty.squeeze(-1), float("inf"))
+    return out.to(q.dtype), lse
+
+
 def flash_attention_plain(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -62,34 +118,197 @@ def flash_attention_plain(
     over the keys of the sequence the wrapper padded to a multiple of 128
     (the pad keys' v being zero), so its output is sum(v) / S rounded up to
     128.  No real position reads such a row."""
-    _check_shapes(q, k, v, pad_mask)
-    H, kvH = q.shape[1], k.shape[1]
-    q = q * torch.tensor(scale, dtype=q.dtype, device=q.device)
-    if kvH != H:
-        k = k.repeat_interleave(H // kvH, dim=1)
-        v = v.repeat_interleave(H // kvH, dim=1)
-    S = q.shape[2]
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
-    mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()[None, None]
-    if pad_mask is not None:
-        mask = mask & pad_mask.bool()[:, None, None, :]
-    logits = logits + torch.where(mask, 0.0, DEFAULT_MASK_VALUE)
-    m = logits.amax(-1, keepdim=True)
-    e = torch.exp(logits - m)
-    weights = e / e.sum(-1, keepdim=True)
-    out = torch.matmul(weights, v.float())
-    if pad_mask is not None:
-        empty = ~mask.any(-1, keepdim=True)  # (B, 1, S, 1)
-        fill = v.float().sum(2, keepdim=True) / (-(-S // PAD_BUCKET) * PAD_BUCKET)
-        out = torch.where(empty, fill, out)
-    return out.to(q.dtype)
+    return flash_attention_fwd_plain(q, k, v, pad_mask, scale)[0]
 
 
-def _fn():
-    fn = kernels.load("flash_attention").flash_attention_fwd_bf16
+def _fn(name: str, library: str, n_ptr: int):
+    fn = getattr(kernels.load(library), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
     return fn
+
+
+def _check_kernel_inputs(what: str, *tensors: torch.Tensor) -> None:
+    q = tensors[0]
+    if any(t.device != q.device for t in tensors):
+        raise ValueError(f"{what} needs its tensors on one CUDA device (or the CPU)")
+    if any(t.dtype != torch.bfloat16 for t in tensors):
+        raise TypeError(f"{what} kernel takes bfloat16, got {[t.dtype for t in tensors]}")
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"{what} kernel takes head dim 64 or 128, got {q.shape[-1]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what} kernel needs contiguous inputs")
+
+
+def _kernel_args(q, pad_mask, scale):
+    """(int32 key mask or None, the scale rounded to q's dtype)."""
+    kv_valid = None
+    if pad_mask is not None:
+        kv_valid = pad_mask.to(device=q.device, dtype=torch.int32).contiguous()
+    # Rounded to q's dtype, as the JAX wrapper folds it (llama.py:330).
+    return kv_valid, float(torch.tensor(scale, dtype=q.dtype))
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def flash_attention_fwd(q, k, v, pad_mask, scale, need_lse: bool = False):
+    """(out, lse): `flash_attention`'s forward without autograd, and the
+    rows' fp32 logsumexp the backward needs.  On CUDA tensors this launches
+    K3 (writing lse only with `need_lse`, else lse is None) or raises; on
+    CPU tensors it runs `flash_attention_fwd_plain`."""
+    global launches
+    _check_shapes(q, k, v, pad_mask)
+    if q.device.type == "cpu":
+        return flash_attention_fwd_plain(q, k, v, pad_mask, scale)
+    if q.device.type != "cuda":
+        raise ValueError("flash_attention needs q, k, v on one CUDA device (or the CPU)")
+    _check_kernel_inputs("flash_attention", q, k, v)
+    B, H, S, hd = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device) if need_lse else None
+    if out.numel() == 0:
+        return out, lse
+    kv_valid, scale_q = _kernel_args(q, pad_mask, scale)
+    with torch.cuda.device(q.device):
+        err = _fn("flash_attention_fwd_bf16", "flash_attention", 6)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_valid), out.data_ptr(), _ptr(lse),
+            B, H, k.shape[1], S, hd, scale_q, torch.cuda.current_stream().cuda_stream,
+        )
+    kernels.check(err, "flash_attention")
+    launches += 1
+    return out, lse
+
+
+def flash_attention_bwd_plain(q, k, v, pad_mask, o, lse, do, scale):
+    """(dq, dk, dv): the math of jax's `mha_reference_bwd` in fp32, each
+    gradient in its input's dtype.  P is rebuilt from the logits, jax's
+    finite mask and the saved `lse`; dk and dv of a kv head sum over its
+    H / kvH query heads (the transpose of the JAX side's repeat), and dq is
+    taken with respect to the unscaled q through the multiply by the scale
+    in q's dtype.  A row with no valid key (lse = +inf) gets P = 0: dq = 0
+    there and nothing added to dk or dv.  jax's reference spreads such a
+    row's `do` over all keys instead; the two agree when `do` is 0 on those
+    rows, as it is on every caller's path (no real position reads them)."""
+    _check_shapes(q, k, v, pad_mask)
+    B, H, S, hd = q.shape
+    kvH = k.shape[1]
+    qs = _scaled(q, scale)
+    logits, _ = _masked_logits(qs, k, pad_mask)
+    p = torch.exp(logits - lse.float()[..., None])
+    kf, vf = k.float(), v.float()
+    if kvH != H:
+        kf = kf.repeat_interleave(H // kvH, dim=1)
+        vf = vf.repeat_interleave(H // kvH, dim=1)
+    do32 = do.float()
+    dv = torch.matmul(p.transpose(-1, -2), do32)
+    dp = torch.matmul(do32, vf.transpose(-1, -2))
+    delta = (o.float() * do32).sum(-1, keepdim=True)
+    ds = (dp - delta) * p
+    dq = _scaled(torch.matmul(ds, kf).to(q.dtype), scale)
+    dk = torch.matmul(ds.transpose(-1, -2), qs.float())
+    if kvH != H:
+        dk = dk.view(B, kvH, H // kvH, S, hd).sum(2)
+        dv = dv.view(B, kvH, H // kvH, S, hd).sum(2)
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd(q, k, v, pad_mask, o, lse, do, scale):
+    """(dq, dk, dv) of `flash_attention`, from the forward's output `o`
+    and row logsumexp `lse` (B, H, S) fp32.  On CUDA tensors (bf16, hd 64 or
+    128, contiguous) this launches the K3 backward (the D pass, the dK/dV
+    kernel, then the dQ kernel) or raises; on CPU tensors it runs
+    `flash_attention_bwd_plain`, whose contract it keeps."""
+    _check_shapes(q, k, v, pad_mask)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, pad_mask, o, lse, do, scale)
+    if q.device.type != "cuda":
+        raise ValueError("flash_attention_bwd needs CUDA tensors (or CPU ones)")
+    _check_kernel_inputs("flash_attention_bwd", q, k, v, o, do)
+    B, H, S, _ = q.shape
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must match q {tuple(q.shape)}")
+    if lse.shape != (B, H, S) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"lse must be a contiguous (B, H, S) fp32 tensor, got {lse.dtype} {tuple(lse.shape)}")
+    if q.numel() == 0:
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = bwd_delta(o, do)
+    dk, dv = bwd_dkdv(q, k, v, pad_mask, lse, do, delta, scale)
+    return bwd_dq(q, k, v, pad_mask, lse, do, delta, scale), dk, dv
+
+
+def bwd_delta(o, do):
+    """delta (B, H, S) fp32 = rowsum(o * do): the D pass on checked CUDA
+    tensors (`flash_attention_bwd` checks them)."""
+    global bwd_delta_launches
+    B, H, S, hd = o.shape
+    delta = torch.empty(B, H, S, dtype=torch.float32, device=o.device)
+    fn = kernels.load("flash_attention_bwd").flash_attention_bwd_delta_bf16
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    with torch.cuda.device(o.device):
+        err = fn(o.data_ptr(), do.data_ptr(), delta.data_ptr(), B * H * S, hd,
+                 torch.cuda.current_stream().cuda_stream)
+    kernels.check(err, "flash_attention_bwd D pass")
+    bwd_delta_launches += 1
+    return delta
+
+
+def bwd_dkdv(q, k, v, pad_mask, lse, do, delta, scale):
+    """(dk, dv): the dK/dV kernel on checked CUDA tensors, with `delta`
+    from `bwd_delta`."""
+    global bwd_dkdv_launches
+    B, H, S, hd = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    kv_valid, scale_q = _kernel_args(q, pad_mask, scale)
+    with torch.cuda.device(q.device):
+        err = _fn("flash_attention_bwd_dkdv_bf16", "flash_attention_bwd", 9)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_valid), lse.data_ptr(),
+            do.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, H, k.shape[1], S, hd, scale_q, torch.cuda.current_stream().cuda_stream,
+        )
+    kernels.check(err, "flash_attention_bwd dk/dv")
+    bwd_dkdv_launches += 1
+    return dk, dv
+
+
+def bwd_dq(q, k, v, pad_mask, lse, do, delta, scale):
+    """dq: the dQ kernel on checked CUDA tensors, with `delta` from
+    `bwd_delta`."""
+    global bwd_dq_launches
+    B, H, S, hd = q.shape
+    dq = torch.empty_like(q)
+    kv_valid, scale_q = _kernel_args(q, pad_mask, scale)
+    with torch.cuda.device(q.device):
+        err = _fn("flash_attention_bwd_dq_bf16", "flash_attention_bwd", 8)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_valid), lse.data_ptr(), do.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(),
+            B, H, k.shape[1], S, hd, scale_q, torch.cuda.current_stream().cuda_stream,
+        )
+    kernels.check(err, "flash_attention_bwd dq")
+    bwd_dq_launches += 1
+    return dq
+
+
+class FlashAttention(torch.autograd.Function):
+    """`flash_attention` under autograd: the forward keeps q, k, v, its
+    output and the rows' logsumexp; the backward is `flash_attention_bwd`
+    (the K3 backward when the forward ran on CUDA, the plain pair on the
+    CPU).  Gradients flow to q (unscaled), k and v; none to the mask."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, pad_mask, scale):
+        out, lse = flash_attention_fwd(q, k, v, pad_mask, scale, need_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse, pad_mask)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse, pad_mask = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, pad_mask, out, lse, do.contiguous(), ctx.scale)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(
@@ -105,35 +324,8 @@ def flash_attention(
     On CUDA tensors (bf16, hd 64 or 128, contiguous) this launches K3 or
     raises; on CPU tensors it runs the plain version.  A query with no valid
     key (a leading pad query under left padding) gets, in both, what the
-    JAX wrapper gives it (see `flash_attention_plain`)."""
-    global launches
-    _check_shapes(q, k, v, pad_mask)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, pad_mask, scale)
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
-        raise ValueError("flash_attention needs q, k, v on one CUDA device (or the CPU)")
-    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
-        raise TypeError(f"flash_attention kernel takes bfloat16, got {q.dtype}")
-    B, H, S, hd = q.shape
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel takes head dim 64 or 128, got {hd}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention kernel needs contiguous q, k, v")
-    out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    kv_valid = None
-    if pad_mask is not None:
-        kv_valid = pad_mask.to(device=q.device, dtype=torch.int32).contiguous()
-    # Rounded to q's dtype, as the JAX wrapper folds it (llama.py:330).
-    scale_q = float(torch.tensor(scale, dtype=q.dtype))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _fn()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if kv_valid is None else kv_valid.data_ptr(), out.data_ptr(),
-            B, H, k.shape[1], S, hd, scale_q, stream,
-        )
-    kernels.check(err, "flash_attention")
-    launches += 1
-    return out
+    JAX wrapper gives it (see `flash_attention_plain`).  When autograd
+    tracks q, k or v, it runs through `FlashAttention`."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, pad_mask, scale)
+    return flash_attention_fwd(q, k, v, pad_mask, scale)[0]

@@ -9,9 +9,10 @@
 
     pre_acts = relu((x - b_dec) @ W_enc + b_enc)
     encode   = exact top-k of pre_acts
+    decode   = sparse_decode(top_indices, top_acts) + b_dec   (forward only)
 
-Decode, the training forward, AuxK and the decoder renorm under training
-come with the training slice.
+The training forward, AuxK, the decoder renorm and decode's backward come
+with the training slice.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from torch import nn
 from ..config import SaeConfig
 from ..device import DeviceLike, resolve_device
 from ..ops import top_k
+from ..ops.sparse_decode import sparse_decode
 from ..utils import natsorted
 
 Params = Dict[str, torch.Tensor]
@@ -86,10 +88,19 @@ def encode(params: Params, x: torch.Tensor, cfg: SaeConfig) -> EncoderOutput:
     return select_topk(pre_acts(params, x), cfg.k)
 
 
+def decode(params: Params, top_acts: torch.Tensor, top_indices: torch.Tensor) -> torch.Tensor:
+    """Sparse decode + decoder bias: kernel K2's decode mode on CUDA."""
+    if "W_dec" not in params:
+        raise KeyError("the SAE was loaded without its decoder (decoder=False)")
+    W_dec = params["W_dec"]
+    return sparse_decode(top_indices, top_acts.to(W_dec.dtype), W_dec) + params["b_dec"]
+
+
 class Sae(nn.Module):
     """(params, cfg, d_in) with the reference's object API: `pre_acts`,
-    `select_topk`, `encode`, `save_to_disk`, `load_from_disk`, `load_many`.
-    The parameters are buffers (nothing here has a backward)."""
+    `select_topk`, `encode`, `decode`, `save_to_disk`, `load_from_disk`,
+    `load_many`.  The parameters are buffers (nothing here has a
+    backward)."""
 
     def __init__(
         self,
@@ -125,6 +136,9 @@ class Sae(nn.Module):
 
     def encode(self, x: torch.Tensor) -> EncoderOutput:
         return encode(self.params, x, self.cfg)
+
+    def decode(self, top_acts: torch.Tensor, top_indices: torch.Tensor) -> torch.Tensor:
+        return decode(self.params, top_acts, top_indices)
 
     def save_to_disk(self, path: Union[Path, str]) -> None:
         from .serde import save_sae_to_disk

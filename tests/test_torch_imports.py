@@ -16,6 +16,13 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "multimodal_sae_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "multimodal_sae_tpu")
+ATTRIBUTION_MODULES = (
+    "multimodal_sae_tpu_torch.ops.gather_rows",
+    "multimodal_sae_tpu_torch.ops.sparse_decode",
+    "multimodal_sae_tpu_torch.features.patching",
+    "multimodal_sae_tpu_torch.features.patching.attribution",
+    "multimodal_sae_tpu_torch.features.patching.utils",
+)
 
 
 def _imports(path: Path):
@@ -40,6 +47,7 @@ def test_importing_every_module_leaves_jax_unloaded():
         "import multimodal_sae_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
+        f"assert set({ATTRIBUTION_MODULES!r}) <= set(names)\n"
         "import chip_smoke\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert len(names) > 20 and not bad, (len(names), bad)\n"
@@ -58,6 +66,7 @@ def no_cuda(monkeypatch):
 
 def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
     from multimodal_sae_tpu_torch.config import CacheConfig, SaeConfig
+    from multimodal_sae_tpu_torch.features.patching import Attribution
     from multimodal_sae_tpu_torch.interp_utils import load_saes
     from multimodal_sae_tpu_torch.launch.cache import cache as cli
     from multimodal_sae_tpu_torch.models import LlamaConfig, LlamaModel, SyntheticActivationSource
@@ -73,6 +82,7 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
         lambda: LlamaModel.random(tiny),
         lambda: SyntheticActivationSource(),
         lambda: cli.main(CacheConfig(model="synthetic://4,1,8", sae_path=str(tmp_path))),
+        lambda: Attribution(None, None, str(tmp_path), str(tmp_path / "probe.json"), selected_sae="layers.0"),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
