@@ -17,8 +17,12 @@ Phases; any failure raises and ends the run with a non-zero exit code:
    against the plain pair at (2, 32, 8, 2,432, 128) bf16, unmasked and with
    row 0 left-padded by 300 (dO zero on its rows without a valid key): the
    forward's output and logsumexp, then dq, dk and dv, each side from its
-   own forward; then timed at B = 8 beside its bound and SDPA's GQA
-   backward;
+   own forward, and a second backward equal bit for bit; then an edge set
+   (S = 1, 17, 65, 130, 300; kvH = H and 1; hd 64; left pads past one
+   64-row tile) held the same way; then timed at B = 8 (the D pass, dK/dV
+   and dQ apart, with each product kernel's registers, shared memory and
+   blocks per SM) beside its bound and SDPA's GQA backward, and the
+   forward with lse beside its bound and SDPA's GQA forward;
 5. cache_path: a random LLaMA-3-8B-width subject (25 layers for hookpoint
    layers.24, bf16, flash attention) feeding a 131,072-latent k=256 fp32 SAE
    (saved with `save_to_disk`, read back through `load_saes`) through
@@ -28,8 +32,8 @@ Phases; any failure raises and ends the run with a non-zero exit code:
 6. gather_rows (K2), inside the attribution phase before its counted run,
    on the subject's clean top-k (2,432 tokens x 256 rows of a
    131,072 x 4,096 fp32 decoder): copy mode bit-exact against
-   `W[idx]`, decode mode within a stated fp32 bound of its plain version,
-   timed beside its bound and `embedding_bag`;
+   `W[idx]` and timed beside it, decode mode within a stated fp32 bound of
+   its plain version, timed beside its bound and `embedding_bag`;
 7. attribution_path: the full 32-layer random LLaMA-3-8B-width subject
    (bf16, flash attention, LM head) and the 131,072-latent SAE with its
    decoder (saved, then loaded with `decoder=True`); `fast_attribution_maps`
@@ -83,6 +87,13 @@ K3_BWD_L2_REL = 1e-2
 # keeps fp32; the sums run over up to 2,432 queries or keys.  Each side
 # starts from its own forward: the kernel's o and lse against the plain
 # version's, so a fault in the forward's lse shows here.
+K3_BWD_ZERO = 1e-3
+# A gradient that is 0 in exact arithmetic is held to max |kernel| <= 1e-3
+# instead: at S = 1 the one key's P is 1, so dS = dP - D, two fp32 sums of
+# the same 128 products of bf16 values (|do . v| < ~40 here) in different
+# orders, and dq and dk are that rounding (under 1e-4) times k or qs; the
+# plain version's are rounding too, so a relative bound would compare noise
+# with noise.  Every other gradient here has max |plain| > 1.
 ATTRIBUTION_L2_REL = 1e-3
 # Fast against general attribution, ||fast - general|| <= 1e-3 * ||general||
 # per feature: the two select the same top-k in the same order, decode it
@@ -297,15 +308,47 @@ def phase_flash_attention(dev) -> dict:
 
 
 def _grad_errors(got: torch.Tensor, ref: torch.Tensor, what: str) -> dict:
-    """Hold one gradient of the K3 backward against its plain version."""
+    """Hold one gradient of the K3 backward against its plain version (a
+    gradient that is 0 in exact arithmetic against K3_BWD_ZERO)."""
     if not torch.isfinite(got).all():
         raise AssertionError(f"flash_attention_bwd gave non-finite {what}")
     diff = got.float() - ref.float()
-    out = {"max_abs_err": diff.abs().max().item(), "max_abs_plain": ref.float().abs().max().item(),
-           "l2_rel": (diff.norm() / ref.float().norm()).item()}
-    if out["max_abs_err"] > K3_BWD_MAX_REL * out["max_abs_plain"] or out["l2_rel"] > K3_BWD_L2_REL:
+    out = {"max_abs_err": diff.abs().max().item(), "max_abs_plain": ref.float().abs().max().item()}
+    if out["max_abs_plain"] <= K3_BWD_ZERO:
+        out["max_abs_kernel"] = got.float().abs().max().item()
+        if not out["max_abs_kernel"] <= K3_BWD_ZERO:
+            raise AssertionError(f"flash_attention_bwd {what} off: {out}, 0 expected")
+        return out
+    out["l2_rel"] = (diff.norm() / ref.float().norm()).item()
+    if not (out["max_abs_err"] <= K3_BWD_MAX_REL * out["max_abs_plain"] and out["l2_rel"] <= K3_BWD_L2_REL):
         raise AssertionError(f"flash_attention_bwd {what} off: {out}")
     return out
+
+
+def _check_bwd_chain(fa, q, k, v, pad_mask, do, scale, what) -> dict:
+    """The kernels' chain (forward with lse, then the backward on its o and
+    lse) against the plain pair's, each from its own forward; a second
+    backward on the same inputs must give the same bits, and dq must be
+    exactly 0 on rows without a valid key."""
+    o, lse = fa.flash_attention_fwd(q, k, v, pad_mask, scale, need_lse=True)
+    o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, pad_mask, scale)
+    torch.cuda.synchronize()
+    lse_err = _check_lse(lse, lse_ref, what)
+    o_err = (o.float() - o_ref.float()).abs()
+    if not bool((o_err <= K3_ATOL + K3_RTOL * o_ref.float().abs()).all()):
+        raise AssertionError(f"flash_attention off by {o_err.max().item()} at {what}")
+    got = fa.flash_attention_bwd(q, k, v, pad_mask, o, lse, do, scale)
+    again = fa.flash_attention_bwd(q, k, v, pad_mask, o, lse, do, scale)
+    ref = fa.flash_attention_bwd_plain(q, k, v, pad_mask, o_ref, lse_ref, do, scale)
+    torch.cuda.synchronize()
+    errors = {name: _grad_errors(a, b, f"{name} at {what}") for name, a, b in zip(("dq", "dk", "dv"), got, ref)}
+    if not all(torch.equal(a.view(torch.int16), b.view(torch.int16)) for a, b in zip(got, again)):
+        raise AssertionError(f"flash_attention_bwd: two calls differ at {what}")
+    no_key = torch.isinf(lse)  # (B, H, S): rows without a valid key
+    if bool(got[0][no_key].any()):
+        raise AssertionError(f"flash_attention_bwd: dq not 0 on rows without a valid key at {what}")
+    return {"lse_max_abs_err": lse_err, "lse_inf_rows": int(no_key.sum()), "o_max_abs_err": o_err.max().item(),
+            "errors": errors, "deterministic": True}
 
 
 def _check_lse(got: torch.Tensor, ref: torch.Tensor, what: str) -> float:
@@ -353,39 +396,47 @@ def phase_flash_attention_bwd(dev) -> dict:
             # (dq = 0 there, nothing added to dk, dv) holds the plain
             # version's only under that condition.
             do_ = do * real[:, None, :, None]
-        what = f"(2, {H}, {kvH}, {S}, {hd}), left pad {pad}"
-        o, lse = fa.flash_attention_fwd(q, k, v, pad_mask, scale, need_lse=True)
-        o_ref, lse_ref = fa.flash_attention_fwd_plain(q, k, v, pad_mask, scale)
-        torch.cuda.synchronize()
-        lse_err = _check_lse(lse, lse_ref, what)
-        o_err = (o.float() - o_ref.float()).abs()
-        if not bool((o_err <= K3_ATOL + K3_RTOL * o_ref.float().abs()).all()):
-            raise AssertionError(f"flash_attention off by {o_err.max().item()} at {what}")
-        got = fa.flash_attention_bwd(q, k, v, pad_mask, o, lse, do_, scale)
-        ref = fa.flash_attention_bwd_plain(q, k, v, pad_mask, o_ref, lse_ref, do_, scale)
-        torch.cuda.synchronize()
-        errors = {name: _grad_errors(a, b, name) for name, a, b in zip(("dq", "dk", "dv"), got, ref)}
-        if pad and bool(got[0][0, :, :pad].any()):
-            raise AssertionError("flash_attention_bwd: dq not 0 on rows without a valid key")
-        result["max_abs_err"] = max([result["max_abs_err"]] + [e["max_abs_err"] for e in errors.values()])
-        emit({"phase": "flash_attention_bwd_check", "shape": [2, H, kvH, S, hd], "left_pad_row0": pad,
-              "lse_max_abs_err": lse_err, "lse_atol": K3_LSE_ATOL, "lse_inf_rows": int(torch.isinf(lse).sum()),
-              "o_max_abs_err": o_err.max().item(), "errors": errors,
-              "max_rel": K3_BWD_MAX_REL, "l2_rel": K3_BWD_L2_REL})
-        del o, lse, o_ref, lse_ref, o_err, got, ref
+        line = _check_bwd_chain(fa, q, k, v, pad_mask, do_, scale, f"(2, {H}, {kvH}, {S}, {hd}), left pad {pad}")
+        result["max_abs_err"] = max([result["max_abs_err"]] + [e["max_abs_err"] for e in line["errors"].values()])
+        emit({"phase": "flash_attention_bwd_check", "shape": [2, H, kvH, S, hd], "left_pad_row0": pad, **line,
+              "lse_atol": K3_LSE_ATOL, "max_rel": K3_BWD_MAX_REL, "l2_rel": K3_BWD_L2_REL})
         torch.cuda.empty_cache()
     del q, k, v, do
     torch.cuda.empty_cache()
+
+    # Edges: one token, ragged tiles (17, 65, 130, 300), kvH = H and kvH = 1,
+    # hd 64, left pads past one 64-row tile; dO zero on rows without a key.
+    edges = ((1, 2, 2, 1, 128, None), (2, 4, 1, 17, 64, [0, 5]), (2, 4, 1, 65, 128, [0, 30]),
+             (1, 8, 2, 130, 64, [100]), (2, 4, 4, 300, 128, [150, 0]), (1, 4, 2, 300, 64, None))
+    edge_errors = {}
+    for B_, H_, kvH_, S_, hd_, pads in edges:
+        q_ = torch.randn(B_, H_, S_, hd_, generator=gen, device=dev).to(torch.bfloat16)
+        k_ = torch.randn(B_, kvH_, S_, hd_, generator=gen, device=dev).to(torch.bfloat16)
+        v_ = torch.randn(B_, kvH_, S_, hd_, generator=gen, device=dev).to(torch.bfloat16)
+        do_ = torch.randn(B_, H_, S_, hd_, generator=gen, device=dev).to(torch.bfloat16)
+        pad_mask = None
+        if pads is not None:
+            real = torch.arange(S_, device=dev)[None, :] >= torch.tensor(pads, device=dev)[:, None]
+            pad_mask = real.int()
+            do_ = do_ * real[:, None, :, None]
+        what = str((B_, H_, kvH_, S_, hd_, pads))
+        line = _check_bwd_chain(fa, q_, k_, v_, pad_mask, do_, hd_ ** -0.5, what)
+        edge_errors[what] = {name: e["max_abs_err"] for name, e in line["errors"].items()}
+        result["max_abs_err"] = max([result["max_abs_err"]] + list(edge_errors[what].values()))
+    emit({"phase": "flash_attention_bwd_edges", "max_abs_err": edge_errors, "deterministic": True,
+          "max_rel": K3_BWD_MAX_REL, "l2_rel": K3_BWD_L2_REL, "zero_atol": K3_BWD_ZERO})
 
     B = 8
     q, k, v, do = inputs(B)
     o, lse = fa.flash_attention_fwd(q, k, v, None, scale, need_lse=True)
     kernel_ms = time_ms(lambda: fa.flash_attention_bwd(q, k, v, None, o, lse, do, scale))
     forward_ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, None, scale, need_lse=True))
-    delta = fa.bwd_delta(o, do)
-    delta_ms = time_ms(lambda: fa.bwd_delta(o, do))
-    dkdv_ms = time_ms(lambda: fa.bwd_dkdv(q, k, v, None, lse, do, delta, scale))
-    dq_ms = time_ms(lambda: fa.bwd_dq(q, k, v, None, lse, do, delta, scale))
+    forward_library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, scale=scale, enable_gqa=True))
+    delta, qs = fa.bwd_delta(q, o, do, scale)
+    delta_ms = time_ms(lambda: fa.bwd_delta(q, o, do, scale))
+    dkdv_ms = time_ms(lambda: fa.bwd_dkdv(qs, k, v, None, lse, do, delta))
+    dq_ms = time_ms(lambda: fa.bwd_dq(qs, k, v, None, lse, do, delta, scale))
     plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, None, o, lse, do, scale), iters=2, warmup=1)
     # SDPA's backward alone (its forward outside the timing) on the same
     # kvH = 8 tensors with enable_gqa, so it too sums dk and dv over each
@@ -399,23 +450,31 @@ def phase_flash_attention_bwd(dev) -> dict:
     out_r = torch.nn.functional.scaled_dot_product_attention(qg, kr, vr, is_causal=True, scale=scale)
     repeat_ms = time_ms(lambda: torch.autograd.grad(out_r, (qg, kr, vr), do, retain_graph=True))
     # The work: 5 products of 2 * hd operations per causal (query, key)
-    # pair (dK/dV kernel 4 of them, dQ kernel 3); q, o, do, dq and k, v,
-    # dk, dv moved once, lse read.
+    # pair (the dK/dV kernel runs 4 of them, the dQ kernel 3); q, o, do, dq
+    # and k, v, dk, dv moved once, lse read.  The forward: 2 products (4 * hd
+    # per pair); q, k, v read, o and lse written.
     pairs = B * H * S * (S + 1) / 2
     nbytes = (4 * B * H * S * hd + 4 * B * kvH * S * hd) * 2 + B * H * S * 4
     flops = 10 * hd * pairs
     bound_ms = max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+    fwd_flops = 4 * hd * pairs
+    fwd_bytes = (2 * B * H * S * hd + 2 * B * kvH * S * hd) * 2 + B * H * S * 4
     line = {
         "phase": "flash_attention_bwd", "shape": [B, H, kvH, S, hd], "kernel_ms": kernel_ms,
-        "delta_ms": delta_ms, "dkdv_ms": dkdv_ms, "dq_ms": dq_ms, "forward_with_lse_ms": forward_ms,
+        "delta_ms": delta_ms, "dkdv_ms": dkdv_ms, "dq_ms": dq_ms,
         "plain_ms": plain_ms, "library_ms": library_ms, "library_repeat_kv_ms": repeat_ms,
         "bound_ms": bound_ms, "bound_by": "operations" if flops / BF16_FLOPS > nbytes / HBM_BYTES_PER_S else "bytes",
-        "delta_bound_ms": 2 * B * H * S * hd * 2 / HBM_BYTES_PER_S * 1e3,
+        # The D pass reads q, o and do and writes qs and delta.
+        "delta_bound_ms": (4 * B * H * S * hd * 2 + B * H * S * 4) / HBM_BYTES_PER_S * 1e3,
         "dkdv_bound_ms": 8 * hd * pairs / BF16_FLOPS * 1e3, "dq_bound_ms": 6 * hd * pairs / BF16_FLOPS * 1e3,
         "tflops": flops / kernel_ms / 1e9,
+        "dkdv_tflops": 8 * hd * pairs / dkdv_ms / 1e9, "dq_tflops": 6 * hd * pairs / dq_ms / 1e9,
+        "resources": fa.bwd_resources(hd),
+        "forward_with_lse_ms": forward_ms, "forward_with_lse_library_ms": forward_library_ms,
+        "forward_with_lse_bound_ms": max(fwd_flops / BF16_FLOPS, fwd_bytes / HBM_BYTES_PER_S) * 1e3,
     }
     emit(line)
-    del q, k, v, do, o, lse, delta, qg, kg, vg, out, kr, vr, out_r
+    del q, k, v, do, o, lse, delta, qs, qg, kg, vg, out, kr, vr, out_r
     torch.cuda.empty_cache()
     result.update({"ms": kernel_ms, **{key: line[key] for key in ("plain_ms", "library_ms", "bound_ms", "bound_by")}})
     return result
@@ -586,10 +645,16 @@ def check_gather_rows(W: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor, ch
     torch.cuda.synchronize()
     if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
         raise AssertionError("gather_rows differs from W[idx]")
-    copy = {"rows": flat.numel(), "bitexact": True,
+    # The 128 tokens' top-k repeat rows: the work reads each distinct row
+    # once and writes every row.
+    flat_long = flat.long()
+    copy_distinct = torch.unique(flat).numel()
+    copy = {"rows": flat.numel(), "distinct_rows": copy_distinct, "bitexact": True,
             "kernel_ms": time_ms(lambda: gr.gather_rows(W, flat)),
             "plain_ms": time_ms(lambda: gr.gather_rows_plain(W, flat)),
-            "bound_ms": (2 * flat.numel() * d * W.element_size() + flat.numel() * 4) / HBM_BYTES_PER_S * 1e3}
+            "library_ms": time_ms(lambda: W[flat_long]),
+            "bound_ms": ((copy_distinct + flat.numel()) * d * W.element_size() + flat.numel() * 4)
+            / HBM_BYTES_PER_S * 1e3}
     del got, ref
 
     got, ref = gr.gather_decode(idx, vals, W), gr.gather_decode_plain(idx, vals, W)

@@ -3,8 +3,9 @@
 // v, the forward's output o, its row logsumexp lse and the output gradient do.
 //
 // Replaces the backward of jax's shipped Pallas TPU kernel
-// (jax.experimental.pallas.ops.tpu.flash_attention: _flash_attention_bwd_dkv
-// and _flash_attention_bwd_dq), the custom VJP of the attention that
+// (jax.experimental.pallas.ops.tpu.flash_attention: _flash_attention_bwd_dkv,
+// its pallas_call at flash_attention.py:1121, and _flash_attention_bwd_dq, at
+// :1456), the custom VJP of the attention that
 // multimodal_sae_tpu/models/llama.py::flash_attention calls.
 //
 // Semantics, those of jax's mha_reference_bwd: with qs = bf16(q * scale) (the
@@ -14,469 +15,467 @@
 //   dk = ds^T qs,  dq = bf16(bf16(ds k) * scale)
 // (dq is taken with respect to the unscaled q, through the bf16 multiply by
 // the scale, rounded twice as the JAX side rounds it).  dk and dv of kv head
-// g sum over its H / kvH query heads in fp32.  A row with no valid key (a
-// leading pad query under left padding) has lse = +inf: its P is 0, so it
-// gets dq = 0 and adds nothing to dk or dv.  jax's reference spreads such a
-// row's do over all keys instead; the two agree whenever do is 0 on those
-// rows, which is what every caller gives them (no real position reads them).
+// g sum over its H / kvH query heads in fp32, in a fixed order.  A row with
+// no valid key (a leading pad query under left padding) has lse = +inf: its
+// P is 0, so it gets dq = 0 and adds nothing to dk or dv.  jax's reference
+// spreads such a row's do over all keys instead; the two agree whenever do is
+// 0 on those rows, which is what every caller gives them (no real position
+// reads them).
 //
 // Bound on an H100: tensor-core operations, 5 products of 2 * hd per causal
 // (query, valid key) pair (QK^T, dO V^T, P^T dO, dS^T Q, dS K) over
-// 989 TFLOP/s, about 0.98 ms at B=8, H=32, S=2432, hd=128.
-// Design, kept simple (FlashAttention-2's split without its pipelining):
-// three kernels, each launched by its own C entry point.  (1) D =
-// rowsum(o * do) in fp32, one warp per row.
-// (2) dK/dV: one block of 4 warps per (b, kv head, 64-key tile), each warp
-// owning 16 keys whose dK and dV accumulate in fp32 registers; it loops over
-// the H / kvH query heads of its group and over 32-query tiles from the
-// diagonal down, recomputing S^T = K Q^T and P^T from lse.  No atomics, so
-// the result is deterministic.  (3) dQ: one block per (b, h, 64-query tile),
-// 16 query rows a warp, looping over the key tiles up to the diagonal.
-// Products are mma.sync m16n8k16 (bf16 in, fp32 accumulate); P and dS are
-// rounded to bf16 as the A operand of the products that consume them.  Tiles
-// whose fragments are read along the other axis are stored transposed in
-// shared memory (rows padded by 8 elements, so fragment reads hit distinct
-// banks).  No cp.async/TMA, no wgmma.
+// 989 TFLOP/s, about 0.98 ms at B=8, H=32, S=2432, hd=128.  The kernels run
+// 7: the dQ kernel recomputes S and dP.  FlashAttention-2's single kernel
+// saves those two by adding each block's dQ into an fp32 buffer with
+// atomicAdd, but the order of those adds changes from run to run and so do
+// dq's bits; the attribution checks rely on equal inputs giving equal bits,
+// so the split stays and nothing here uses atomics.
+//
+// Design (Hopper: wgmma fed by a cp.async ring; building blocks in sm90.cuh):
+// (1) The D pass, one warp per row: D = rowsum(o * do) in fp32, and
+// qs = bf16(q * scale) written once for both product kernels.
+// (2) dK/dV: one warpgroup per (b, kv head, 64-key tile); the grid puts key
+// tile 0 (the most query tiles) of every (b, kv head) first.  K and V load
+// once into 128-byte-swizzled shared tiles; dK and dV accumulate in fp32
+// registers.  The loop runs over the group's H / kvH query heads and, in
+// each, the 64-query tiles from the diagonal down, through a 2-stage ring
+// holding each tile's qs, dO, lse and D; tile i + 1's cp.async copies are in
+// flight while tile i computes.  Per tile: S^T = K qs^T and dP^T = V dO^T as
+// wgmma with both operands in shared memory (N = 64); P^T = exp2(S^T log2 e
+// - lse log2 e), masked only on the diagonal tile and the ragged tail;
+// dS^T = P^T (dP^T - D); both rounded to bf16 in registers, where the
+// accumulator layout already is wgmma's A-fragment layout; then dV += P^T dO
+// and dK += dS^T qs as wgmma with A from registers and B read MN-major from
+// the same qs and dO tiles (N = hd), so no transposed copy is written.  A
+// key with kv_valid = 0 gets dk = dv = 0 in the epilogue: its row of P^T
+// touches only its own row of dK and dV.
+// (3) dQ: one warpgroup per (b, h, 64-query tile); the grid puts the last
+// query tile (the most key tiles) of every (b, h) first.  qs and dO load
+// once; K and V tiles come through a 2-stage ring up to the diagonal.  S =
+// qs K^T and dP = dO V^T from shared memory, dS in registers, dQ += dS K with
+// K read MN-major from the same tile.
+// Each block is one warpgroup of 128 threads, two blocks per SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int KB = 64;   // dK/dV kernel: keys per block (16 per warp)
-constexpr int QT = 32;   // dK/dV kernel: queries per tile
-constexpr int QB = 64;   // dQ kernel: queries per block (16 per warp)
-constexpr int KT = 64;   // dQ kernel: keys per tile
-constexpr float LOG2E = 1.4426950408889634f;
+using namespace sm90;
 
 typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&p);
-}
+constexpr int THREADS = 128;  // one warpgroup a block
+constexpr int STAGES = 2;     // ring depth
+constexpr int KB = 64;        // dK/dV kernel: keys a block (wgmma M)
+constexpr int QT = 64;        // dK/dV kernel: queries a ring tile
+constexpr int QB = 64;        // dQ kernel: queries a block (wgmma M)
+constexpr int KT = 64;        // dQ kernel: keys a ring tile
+constexpr float LOG2E = 1.4426950408889634f;
+static_assert(THREADS == 2 * QT, "one thread copies each lse and D value of a tile");
 
-// d += a * b for one m16n8k16 tile (A row-major 16x16, B column-major 16x8).
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// The A fragment of rows [row0, row0 + 16) and columns [c0, c0 + 16) of a
-// row-major shared tile with row stride `ld` (elements).
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* base, int ld,
-                                       int row0, int c0, int g, int t) {
-  const bf16* p = base + (row0 + g) * ld + c0 + 2 * t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * ld);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * ld + 8);
-}
-
-// Accumulator tiles c[2 kk], c[2 kk + 1] (16 x 16) as a bf16 A fragment.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c0)[4],
-                                         const float (&c1)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
-}
-
-// Copy rows [r0, r0 + rows) of a (S, HD) bf16 matrix into shared memory,
-// row-major with stride `ld` and/or transposed ([HD][rows + 8]), zero past S,
-// multiplied by `scale` in bf16 when `scaled`.
-template <int HD>
-__device__ __forceinline__ void load_tile(const bf16* src, int r0, int rows, int S,
-                                          bf16* row_major, int ld, bf16* transposed,
-                                          bool scaled, float scale) {
-  const int tld = rows + 8;
-  for (int i = threadIdx.x; i < rows * HD / 8; i += THREADS) {
-    const int r = i / (HD / 8), c = (i % (HD / 8)) * 8;
-    uint4 v4 = make_uint4(0, 0, 0, 0);
-    if (r0 + r < S) v4 = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * HD + c);
-    bf16* e = reinterpret_cast<bf16*>(&v4);
-    if (scaled) {
-#pragma unroll
-      for (int u = 0; u < 8; ++u) e[u] = __float2bfloat16(__bfloat162float(e[u]) * scale);
-    }
-    if (row_major) *reinterpret_cast<uint4*>(row_major + r * ld + c) = v4;
-    if (transposed) {
-#pragma unroll
-      for (int u = 0; u < 8; ++u) transposed[(c + u) * tld + r] = e[u];
-    }
-  }
-}
-
-// D[row] = sum_c o[row, c] * do[row, c] in fp32, one warp per row.
+// D[row] = sum_c o[row, c] * do[row, c] in fp32 and qs[row] = bf16(q[row] *
+// scale), one warp per row.
 __global__ void __launch_bounds__(THREADS)
-    delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
-                 float* __restrict__ delta, int rows, int hd) {
+    delta_kernel(const bf16* __restrict__ q, const bf16* __restrict__ o,
+                 const bf16* __restrict__ dout, float* __restrict__ delta,
+                 bf16* __restrict__ qs, int rows, int hd, float scale) {
   const int row = blockIdx.x * (THREADS / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
-  const bf16* op = o + (size_t)row * hd;
-  const bf16* dp = dout + (size_t)row * hd;
+  const size_t off = (size_t)row * hd;
   float s = 0.f;
   for (int c = 2 * lane; c < hd; c += 64) {
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(op + c));
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dp + c));
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(o + off + c));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dout + off + c));
     s += a.x * b.x + a.y * b.y;
+    const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(q + off + c));
+    *reinterpret_cast<__nv_bfloat162*>(qs + off + c) = __floats2bfloat162_rn(x.x * scale, x.y * scale);
   }
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  for (int m = 16; m > 0; m >>= 1) s += __shfl_xor_sync(0xffffffffu, s, m);
   if (lane == 0) delta[row] = s;
 }
 
+// Dynamic shared memory of the dK/dV kernel: K and V tiles, then STAGES ring
+// stages of (qs tile, dO tile, lse and D of the tile's queries), each stage
+// padded to 1024 bytes so every tile starts on a swizzle boundary; 1024
+// bytes of slack to align the start.
 template <int HD>
-constexpr int dkdv_smem_bytes() {
-  // Ks, Vs (KB x (HD + 8)); Qs, dOs (QT x (HD + 8)); Qt, dOt (HD x (QT + 8));
-  // lse, D (QT floats); key_ok (KB ints).
-  return (2 * KB * (HD + 8) + 2 * QT * (HD + 8) + 2 * HD * (QT + 8)) * 2 +
-         (2 * QT + KB) * 4;
-}
+struct DkdvSmem {
+  static constexpr int KV_TILE = KB * HD * 2;
+  static constexpr int Q_TILE = QT * HD * 2;
+  static constexpr int STAGE = 2 * Q_TILE + 1024;
+  static constexpr int BYTES = 1024 + 2 * KV_TILE + STAGES * STAGE;
+};
 
 template <int HD>
-__global__ void __launch_bounds__(THREADS)
-    dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+__global__ void __launch_bounds__(THREADS, 2)
+    dkdv_kernel(const bf16* __restrict__ qs, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const int* __restrict__ kv_valid,
                 const float* __restrict__ lse, const bf16* __restrict__ dout,
                 const float* __restrict__ delta, bf16* __restrict__ dk,
-                bf16* __restrict__ dv, int H, int kvH, int S, float scale) {
-  constexpr int LD = HD + 8;   // row-major stride
-  constexpr int TLD = QT + 8;  // transposed stride
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + KB * LD;
-  bf16* Qs = Vs + KB * LD;
-  bf16* dOs = Qs + QT * LD;
-  bf16* Qt = dOs + QT * LD;
-  bf16* dOt = Qt + HD * TLD;
-  float* lse_s = reinterpret_cast<float*>(dOt + HD * TLD);
-  float* d_s = lse_s + QT;
-  int* key_ok = reinterpret_cast<int*>(d_s + QT);
+                bf16* __restrict__ dv, int BK, int H, int kvH, int S) {
+  using L = DkdvSmem<HD>;
+  extern __shared__ unsigned char smem[];
+  const uint32_t raw = smem_u32(smem);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const unsigned char* base_p = smem + (base - raw);
+  const uint32_t Ks = base, Vs = base + L::KV_TILE, ring = base + 2 * L::KV_TILE;
 
-  const int bk = blockIdx.y;  // b * kvH + kv head
+  const int bk = blockIdx.x % BK;  // b * kvH + kv head
+  const int k0 = (blockIdx.x / BK) * KB;
   const int b = bk / kvH;
-  const int kvh = bk % kvH;
   const int rep = H / kvH;
-  const int k0 = blockIdx.x * KB;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int wrow = warp * 16;  // this warp's first key row in the tile
+  const int head0 = b * H + (bk % kvH) * rep;  // b * H + the group's first query head
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int per_head = (S - k0 + QT - 1) / QT;  // query tiles from the diagonal (q0 = k0) down
+  const int n_tiles = rep * per_head;
 
-  load_tile<HD>(k + (size_t)bk * S * HD, k0, KB, S, Ks, LD, nullptr, false, 0.f);
-  load_tile<HD>(v + (size_t)bk * S * HD, k0, KB, S, Vs, LD, nullptr, false, 0.f);
-  if (threadIdx.x < KB) {
-    const int key = k0 + threadIdx.x;
-    key_ok[threadIdx.x] =
-        key < S && (kv_valid == nullptr || kv_valid[(size_t)b * S + key] != 0);
-  }
+  // Ring tile `it`: query head it / per_head of the group, queries from
+  // k0 + (it % per_head) * QT; zero past S (lse and D too: the tile's
+  // masking drops those queries).
+  auto prefetch = [&](int it) {
+    const size_t bh = head0 + it / per_head;
+    const int q0 = k0 + (it % per_head) * QT;
+    const uint32_t st = ring + (it % STAGES) * L::STAGE;
+    load_tile<QT, HD, THREADS>(st, qs + bh * S * HD, q0, S, tid);
+    load_tile<QT, HD, THREADS>(st + L::Q_TILE, dout + bh * S * HD, q0, S, tid);
+    const int r = tid % QT;
+    const bool ok = q0 + r < S;
+    cp_async4(st + 2 * L::Q_TILE + tid * 4, (tid < QT ? lse : delta) + bh * S + (ok ? q0 + r : 0), ok);
+  };
 
-  float dk_acc[HD / 8][4], dv_acc[HD / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < HD / 8; ++nd) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[nd][e] = dv_acc[nd][e] = 0.f;
-  }
+  load_tile<KB, HD, THREADS>(Ks, k + (size_t)bk * S * HD, k0, S, tid);
+  load_tile<KB, HD, THREADS>(Vs, v + (size_t)bk * S * HD, k0, S, tid);
+  prefetch(0);
+  cp_async_commit();
 
-  for (int hr = 0; hr < rep; ++hr) {
-    const int bh = b * H + kvh * rep + hr;
-    const bf16* qp = q + (size_t)bh * S * HD;
-    const bf16* dop = dout + (size_t)bh * S * HD;
-    for (int q0 = (k0 / QT) * QT; q0 < S; q0 += QT) {
-      __syncthreads();  // the previous tile's reads are done
-      load_tile<HD>(qp, q0, QT, S, Qs, LD, Qt, true, scale);
-      load_tile<HD>(dop, q0, QT, S, dOs, LD, dOt, false, 0.f);
-      if (threadIdx.x < QT) {
-        const int i = q0 + threadIdx.x;
-        lse_s[threadIdx.x] = i < S ? lse[(size_t)bh * S + i] : INFINITY;
-        d_s[threadIdx.x] = i < S ? delta[(size_t)bh * S + i] : 0.f;
-      }
-      __syncthreads();
+  float dk_acc[HD / 2], dv_acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  fence_regs(dk_acc);
+  fence_regs(dv_acc);
 
-      // S^T (16 keys x 32 queries a warp) and dP^T = V dO^T.
-      float st[QT / 8][4], dpt[QT / 8][4];
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();  // tile it has landed; every thread is done with tile it - 1
+    if (it + 1 < n_tiles) prefetch(it + 1);
+    cp_async_commit();
+
+    const int q0 = k0 + (it % per_head) * QT;
+    const uint32_t Qs = ring + (it % STAGES) * L::STAGE, dOs = Qs + L::Q_TILE;
+    const float* lse_s = reinterpret_cast<const float*>(base_p + (Qs - base) + 2 * L::Q_TILE);
+    const float* d_s = lse_s + QT;
+
+    // S^T = K qs^T and dP^T = V dO^T (64 keys x QT queries).
+    float s[QT / 2], dp[QT / 2];
+    wgmma_fence();
 #pragma unroll
-      for (int nq = 0; nq < QT / 8; ++nq) {
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss<QT, 0>(s, desc_k_major<KB>(Ks, kk), desc_k_major<QT>(Qs, kk), kk);
+    wgmma_commit();
 #pragma unroll
-        for (int e = 0; e < 4; ++e) st[nq][e] = dpt[nq][e] = 0.f;
-      }
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss<QT, 0>(dp, desc_k_major<KB>(Vs, kk), desc_k_major<QT>(dOs, kk), kk);
+    wgmma_commit();
+
+    // P^T from lse while dP^T is still in flight.  Only the diagonal tile
+    // and the ragged tail need the causal and end-of-sequence masks.
+    wgmma_wait<1>();
+    fence_regs(s);
+    const bool edge = q0 < k0 + KB || q0 + QT > S;
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        uint32_t ka[4], va[4];
-        load_a(ka, Ks, LD, wrow, kk * 16, g, t);
-        load_a(va, Vs, LD, wrow, kk * 16, g, t);
-#pragma unroll
-        for (int nq = 0; nq < QT / 8; ++nq) {
-          const bf16* qr = Qs + (nq * 8 + g) * LD + kk * 16 + 2 * t;
-          mma_bf16(st[nq], ka, ld32(qr), ld32(qr + 8));
-          const bf16* dr = dOs + (nq * 8 + g) * LD + kk * 16 + 2 * t;
-          mma_bf16(dpt[nq], va, ld32(dr), ld32(dr + 8));
-        }
-      }
-      // P^T from lse, and dS^T = P^T (dP^T - D).
-#pragma unroll
-      for (int nq = 0; nq < QT / 8; ++nq) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kl = wrow + g + (e >= 2 ? 8 : 0);
-          const int ql = nq * 8 + 2 * t + (e & 1);
-          const bool ok = key_ok[kl] && k0 + kl <= q0 + ql;
-          const float p = ok ? exp2f((st[nq][e] - lse_s[ql]) * LOG2E) : 0.f;
-          st[nq][e] = p;
-          dpt[nq][e] = p * (dpt[nq][e] - d_s[ql]);
-        }
-      }
-      // dV += P^T dO and dK += dS^T Qs, over the tile's 32 queries.
-#pragma unroll
-      for (int kq = 0; kq < QT / 16; ++kq) {
-        uint32_t pa[4], sa[4];
-        acc_to_a(pa, st[2 * kq], st[2 * kq + 1]);
-        acc_to_a(sa, dpt[2 * kq], dpt[2 * kq + 1]);
-#pragma unroll
-        for (int nd = 0; nd < HD / 8; ++nd) {
-          const bf16* dr = dOt + (nd * 8 + g) * TLD + kq * 16 + 2 * t;
-          mma_bf16(dv_acc[nd], pa, ld32(dr), ld32(dr + 8));
-          const bf16* qr = Qt + (nd * 8 + g) * TLD + kq * 16 + 2 * t;
-          mma_bf16(dk_acc[nd], sa, ld32(qr), ld32(qr + 8));
-        }
-      }
+    for (int i = 0; i < QT / 2; ++i) {
+      const int c = acc_col(i, lane);
+      float p = exp2f(s[i] * LOG2E - lse_s[c] * LOG2E);
+      if (edge && !(k0 + acc_row(i, lane, warp) <= q0 + c && q0 + c < S)) p = 0.f;
+      s[i] = p;
     }
+    wgmma_wait<0>();
+    fence_regs(dp);
+#pragma unroll
+    for (int i = 0; i < QT / 2; ++i) dp[i] = s[i] * (dp[i] - d_s[acc_col(i, lane)]);
+
+    // dV += P^T dO and dK += dS^T qs, A from registers, B MN-major.
+    uint32_t pa[QT / 16][4], da[QT / 16][4];
+#pragma unroll
+    for (int kq = 0; kq < QT / 16; ++kq) {
+      acc_to_a(pa[kq], s, kq);
+      acc_to_a(da[kq], dp, kq);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kq = 0; kq < QT / 16; ++kq) wgmma_rs<HD, 1>(dv_acc, pa[kq], desc_mn_major<QT>(dOs, kq), 1);
+#pragma unroll
+    for (int kq = 0; kq < QT / 16; ++kq) wgmma_rs<HD, 1>(dk_acc, da[kq], desc_mn_major<QT>(Qs, kq), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
   }
 
-  const int r0 = k0 + wrow + g, r1 = r0 + 8;
+  // Epilogue: bf16 dk and dv; 0 for a key the pad mask drops.
+  const int r0 = k0 + acc_row(0, lane, warp), r1 = r0 + 8;
+  const bool ok0 = r0 < S && (kv_valid == nullptr || kv_valid[(size_t)b * S + r0] != 0);
+  const bool ok1 = r1 < S && (kv_valid == nullptr || kv_valid[(size_t)b * S + r1] != 0);
   bf16* dkp = dk + (size_t)bk * S * HD;
   bf16* dvp = dv + (size_t)bk * S * HD;
 #pragma unroll
-  for (int nd = 0; nd < HD / 8; ++nd) {
-    const int c = nd * 8 + 2 * t;
-    if (r0 < S) {
-      *reinterpret_cast<uint32_t*>(dkp + (size_t)r0 * HD + c) = pack_bf16(dk_acc[nd][0], dk_acc[nd][1]);
-      *reinterpret_cast<uint32_t*>(dvp + (size_t)r0 * HD + c) = pack_bf16(dv_acc[nd][0], dv_acc[nd][1]);
-    }
-    if (r1 < S) {
-      *reinterpret_cast<uint32_t*>(dkp + (size_t)r1 * HD + c) = pack_bf16(dk_acc[nd][2], dk_acc[nd][3]);
-      *reinterpret_cast<uint32_t*>(dvp + (size_t)r1 * HD + c) = pack_bf16(dv_acc[nd][2], dv_acc[nd][3]);
+  for (int i = 0; i < HD / 2; i += 2) {
+    const int row = (i & 2) ? r1 : r0;
+    const bool ok = (i & 2) ? ok1 : ok0;
+    if (row < S) {
+      const size_t at = (size_t)row * HD + acc_col(i, lane);
+      *reinterpret_cast<uint32_t*>(dkp + at) = ok ? pack_bf16(dk_acc[i], dk_acc[i + 1]) : 0u;
+      *reinterpret_cast<uint32_t*>(dvp + at) = ok ? pack_bf16(dv_acc[i], dv_acc[i + 1]) : 0u;
     }
   }
 }
 
+// Dynamic shared memory of the dQ kernel: qs and dO tiles of the block's
+// queries, then STAGES ring stages of (K tile, V tile, kv_valid of the
+// tile's keys), each padded to 1024 bytes; 1024 bytes of slack.
 template <int HD>
-constexpr int dq_smem_bytes() {
-  // Qs, dOs (QB x (HD + 8)); Ks, Vs (KT x (HD + 8)); Kt (HD x (KT + 8));
-  // key_ok (KT ints).
-  return (2 * QB * (HD + 8) + 2 * KT * (HD + 8) + HD * (KT + 8)) * 2 + KT * 4;
-}
+struct DqSmem {
+  static constexpr int Q_TILE = QB * HD * 2;
+  static constexpr int KV_TILE = KT * HD * 2;
+  static constexpr int STAGE = 2 * KV_TILE + 1024;
+  static constexpr int BYTES = 1024 + 2 * Q_TILE + STAGES * STAGE;
+};
 
 template <int HD>
-__global__ void __launch_bounds__(THREADS)
-    dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+__global__ void __launch_bounds__(THREADS, 2)
+    dq_kernel(const bf16* __restrict__ qs, const bf16* __restrict__ k,
               const bf16* __restrict__ v, const int* __restrict__ kv_valid,
               const float* __restrict__ lse, const bf16* __restrict__ dout,
-              const float* __restrict__ delta, bf16* __restrict__ dq, int H,
+              const float* __restrict__ delta, bf16* __restrict__ dq, int BH, int H,
               int kvH, int S, float scale) {
-  constexpr int LD = HD + 8;
-  constexpr int TLD = KT + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* dOs = Qs + QB * LD;
-  bf16* Ks = dOs + QB * LD;
-  bf16* Vs = Ks + KT * LD;
-  bf16* Kt = Vs + KT * LD;
-  int* key_ok = reinterpret_cast<int*>(Kt + HD * TLD);
+  using L = DqSmem<HD>;
+  extern __shared__ unsigned char smem[];
+  const uint32_t raw = smem_u32(smem);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const unsigned char* base_p = smem + (base - raw);
+  const uint32_t Qs = base, dOs = base + L::Q_TILE, ring = base + 2 * L::Q_TILE;
 
-  const int bh = blockIdx.y;
+  const int n_q_tiles = (S + QB - 1) / QB;
+  const int bh = blockIdx.x % BH;
+  const int q0 = (n_q_tiles - 1 - blockIdx.x / BH) * QB;
   const int b = bh / H;
-  const int kvh = (bh % H) / (H / kvH);
-  const bf16* kp = k + (size_t)(b * kvH + kvh) * S * HD;
-  const bf16* vp = v + (size_t)(b * kvH + kvh) * S * HD;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int q0 = blockIdx.x * QB;
-  const int wrow = warp * 16;
-  const int r0 = q0 + wrow + g, r1 = r0 + 8;
+  const size_t bkv = (size_t)b * kvH + (bh % H) / (H / kvH);
+  const bf16* kp = k + bkv * S * HD;
+  const bf16* vp = v + bkv * S * HD;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int n_tiles = (min(S, q0 + QB) - 1) / KT + 1;  // key tiles up to the diagonal
 
-  load_tile<HD>(q + (size_t)bh * S * HD, q0, QB, S, Qs, LD, nullptr, true, scale);
-  load_tile<HD>(dout + (size_t)bh * S * HD, q0, QB, S, dOs, LD, nullptr, false, 0.f);
-  const float lse0 = r0 < S ? lse[(size_t)bh * S + r0] : INFINITY;
-  const float lse1 = r1 < S ? lse[(size_t)bh * S + r1] : INFINITY;
+  // Ring tile j: keys j * KT .. j * KT + KT - 1, zero past S.
+  auto prefetch = [&](int j) {
+    const uint32_t st = ring + (j % STAGES) * L::STAGE;
+    load_tile<KT, HD, THREADS>(st, kp, j * KT, S, tid);
+    load_tile<KT, HD, THREADS>(st + L::KV_TILE, vp, j * KT, S, tid);
+    if (kv_valid != nullptr && tid < KT) {
+      const int key = j * KT + tid;
+      cp_async4(st + 2 * L::KV_TILE + tid * 4, kv_valid + (size_t)b * S + (key < S ? key : 0), key < S);
+    }
+  };
+
+  load_tile<QB, HD, THREADS>(Qs, qs + (size_t)bh * S * HD, q0, S, tid);
+  load_tile<QB, HD, THREADS>(dOs, dout + (size_t)bh * S * HD, q0, S, tid);
+  prefetch(0);
+  cp_async_commit();
+
+  // This thread's two query rows, their lse (in log2 units) and D.
+  const int r0 = q0 + acc_row(0, lane, warp), r1 = r0 + 8;
+  const float l0 = (r0 < S ? lse[(size_t)bh * S + r0] : INFINITY) * LOG2E;
+  const float l1 = (r1 < S ? lse[(size_t)bh * S + r1] : INFINITY) * LOG2E;
   const float d0 = r0 < S ? delta[(size_t)bh * S + r0] : 0.f;
   const float d1 = r1 < S ? delta[(size_t)bh * S + r1] : 0.f;
 
-  float acc[HD / 8][4];
+  float acc[HD / 2];
 #pragma unroll
-  for (int nd = 0; nd < HD / 8; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  fence_regs(acc);
 
-  const int q_last = min(S, q0 + QB) - 1;
-  const int n_tiles = q_last / KT + 1;
   for (int j = 0; j < n_tiles; ++j) {
-    const int k0 = j * KT;
-    __syncthreads();  // the previous tile's reads are done
-    load_tile<HD>(kp, k0, KT, S, Ks, LD, Kt, false, 0.f);
-    load_tile<HD>(vp, k0, KT, S, Vs, LD, nullptr, false, 0.f);
-    if (threadIdx.x < KT) {
-      const int key = k0 + threadIdx.x;
-      key_ok[threadIdx.x] =
-          key < S && (kv_valid == nullptr || kv_valid[(size_t)b * S + key] != 0);
-    }
-    __syncthreads();
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();  // tile j has landed; every thread is done with tile j - 1
+    if (j + 1 < n_tiles) prefetch(j + 1);
+    cp_async_commit();
 
-    float s[KT / 8][4], dp[KT / 8][4];
+    const int k0 = j * KT;
+    const uint32_t Ks = ring + (j % STAGES) * L::STAGE, Vs = Ks + L::KV_TILE;
+    const int* key_ok = reinterpret_cast<const int*>(base_p + (Ks - base) + 2 * L::KV_TILE);
+
+    // S = qs K^T and dP = dO V^T (64 queries x KT keys).
+    float s[KT / 2], dp[KT / 2];
+    wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < KT / 8; ++nt) {
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss<KT, 0>(s, desc_k_major<QB>(Qs, kk), desc_k_major<KT>(Ks, kk), kk);
+    wgmma_commit();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-    }
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss<KT, 0>(dp, desc_k_major<QB>(dOs, kk), desc_k_major<KT>(Vs, kk), kk);
+    wgmma_commit();
+
+    // P from lse; the causal mask only on the diagonal tile (which also
+    // holds every key past S), the pad mask wherever one is given.
+    wgmma_wait<1>();
+    fence_regs(s);
+    const bool edge = k0 + KT - 1 > q0 || kv_valid != nullptr;
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t qa[4], da[4];
-      load_a(qa, Qs, LD, wrow, kk * 16, g, t);
-      load_a(da, dOs, LD, wrow, kk * 16, g, t);
-#pragma unroll
-      for (int nt = 0; nt < KT / 8; ++nt) {
-        const bf16* kr = Ks + (nt * 8 + g) * LD + kk * 16 + 2 * t;
-        mma_bf16(s[nt], qa, ld32(kr), ld32(kr + 8));
-        const bf16* vr = Vs + (nt * 8 + g) * LD + kk * 16 + 2 * t;
-        mma_bf16(dp[nt], da, ld32(vr), ld32(vr + 8));
+    for (int i = 0; i < KT / 2; ++i) {
+      float p = exp2f(s[i] * LOG2E - ((i & 2) ? l1 : l0));
+      if (edge) {
+        const int c = acc_col(i, lane);
+        if (k0 + c > ((i & 2) ? r1 : r0) || (kv_valid != nullptr && key_ok[c] == 0)) p = 0.f;
       }
+      s[i] = p;
     }
+    wgmma_wait<0>();
+    fence_regs(dp);
 #pragma unroll
-    for (int nt = 0; nt < KT / 8; ++nt) {
+    for (int i = 0; i < KT / 2; ++i) dp[i] = s[i] * (dp[i] - ((i & 2) ? d1 : d0));
+
+    // dQ += dS K, A from registers, B (the K tile) MN-major.
+    uint32_t da[KT / 16][4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kl = nt * 8 + 2 * t + (e & 1);
-        const int row = e < 2 ? r0 : r1;
-        const float l = e < 2 ? lse0 : lse1;
-        const float d = e < 2 ? d0 : d1;
-        const bool ok = key_ok[kl] && k0 + kl <= row;
-        const float p = ok ? exp2f((s[nt][e] - l) * LOG2E) : 0.f;
-        s[nt][e] = p * (dp[nt][e] - d);  // dS
-      }
-    }
+    for (int kq = 0; kq < KT / 16; ++kq) acc_to_a(da[kq], dp, kq);
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < KT / 16; ++kk) {
-      uint32_t sa[4];
-      acc_to_a(sa, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int nd = 0; nd < HD / 8; ++nd) {
-        const bf16* kr = Kt + (nd * 8 + g) * TLD + kk * 16 + 2 * t;
-        mma_bf16(acc[nd], sa, ld32(kr), ld32(kr + 8));
-      }
-    }
+    for (int kq = 0; kq < KT / 16; ++kq) wgmma_rs<HD, 1>(acc, da[kq], desc_mn_major<KT>(Ks, kq), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
   }
 
   // dq = bf16(bf16(dS K) * scale): the VJP of the forward's bf16 q * scale.
   bf16* dqp = dq + (size_t)bh * S * HD;
   const bf16 scale_b = __float2bfloat16(scale);
+  const __nv_bfloat162 sc = __halves2bfloat162(scale_b, scale_b);
 #pragma unroll
-  for (int nd = 0; nd < HD / 8; ++nd) {
-    const int c = nd * 8 + 2 * t;
-    __nv_bfloat162 lo = __floats2bfloat162_rn(acc[nd][0], acc[nd][1]);
-    __nv_bfloat162 hi = __floats2bfloat162_rn(acc[nd][2], acc[nd][3]);
-    const __nv_bfloat162 sc = __halves2bfloat162(scale_b, scale_b);
-    lo = __hmul2(lo, sc);
-    hi = __hmul2(hi, sc);
-    if (r0 < S) *reinterpret_cast<__nv_bfloat162*>(dqp + (size_t)r0 * HD + c) = lo;
-    if (r1 < S) *reinterpret_cast<__nv_bfloat162*>(dqp + (size_t)r1 * HD + c) = hi;
+  for (int i = 0; i < HD / 2; i += 2) {
+    const int row = (i & 2) ? r1 : r0;
+    if (row < S) {
+      const __nv_bfloat162 x = __hmul2(__floats2bfloat162_rn(acc[i], acc[i + 1]), sc);
+      *reinterpret_cast<__nv_bfloat162*>(dqp + (size_t)row * HD + acc_col(i, lane)) = x;
+    }
   }
 }
 
 template <int HD>
-int launch_dkdv(const void* q, const void* k, const void* v, const void* kv_valid,
-                const void* lse, const void* dout, const void* delta, void* dk,
-                void* dv, int B, int H, int kvH, int S, float scale,
-                cudaStream_t stream) {
-  constexpr int smem = dkdv_smem_bytes<HD>();
+int launch_dkdv(const void* qs, const void* k, const void* v, const void* kv_valid,
+                const void* lse, const void* dout, const void* delta, void* dk, void* dv,
+                int B, int H, int kvH, int S, cudaStream_t stream) {
+  constexpr int smem = DkdvSmem<HD>::BYTES;
   cudaError_t err =
       cudaFuncSetAttribute(dkdv_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((S + KB - 1) / KB, B * kvH);
-  dkdv_kernel<HD><<<grid, THREADS, smem, stream>>>(
-      reinterpret_cast<const bf16*>(q), reinterpret_cast<const bf16*>(k),
+  const int BK = B * kvH;
+  dkdv_kernel<HD><<<((S + KB - 1) / KB) * BK, THREADS, smem, stream>>>(
+      reinterpret_cast<const bf16*>(qs), reinterpret_cast<const bf16*>(k),
       reinterpret_cast<const bf16*>(v), reinterpret_cast<const int*>(kv_valid),
       reinterpret_cast<const float*>(lse), reinterpret_cast<const bf16*>(dout),
       reinterpret_cast<const float*>(delta), reinterpret_cast<bf16*>(dk),
-      reinterpret_cast<bf16*>(dv), H, kvH, S, scale);
+      reinterpret_cast<bf16*>(dv), BK, H, kvH, S);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
-int launch_dq(const void* q, const void* k, const void* v, const void* kv_valid,
-              const void* lse, const void* dout, const void* delta, void* dq, int B,
-              int H, int kvH, int S, float scale, cudaStream_t stream) {
-  constexpr int smem = dq_smem_bytes<HD>();
+int launch_dq(const void* qs, const void* k, const void* v, const void* kv_valid,
+              const void* lse, const void* dout, const void* delta, void* dq, int B, int H,
+              int kvH, int S, float scale, cudaStream_t stream) {
+  constexpr int smem = DqSmem<HD>::BYTES;
   cudaError_t err =
       cudaFuncSetAttribute(dq_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((S + QB - 1) / QB, B * H);
-  dq_kernel<HD><<<grid, THREADS, smem, stream>>>(
-      reinterpret_cast<const bf16*>(q), reinterpret_cast<const bf16*>(k),
+  const int BH = B * H;
+  dq_kernel<HD><<<((S + QB - 1) / QB) * BH, THREADS, smem, stream>>>(
+      reinterpret_cast<const bf16*>(qs), reinterpret_cast<const bf16*>(k),
       reinterpret_cast<const bf16*>(v), reinterpret_cast<const int*>(kv_valid),
       reinterpret_cast<const float*>(lse), reinterpret_cast<const bf16*>(dout),
-      reinterpret_cast<const float*>(delta), reinterpret_cast<bf16*>(dq), H, kvH, S,
-      scale);
+      reinterpret_cast<const float*>(delta), reinterpret_cast<bf16*>(dq), BH, H, kvH, S, scale);
   return (int)cudaGetLastError();
+}
+
+// Registers a thread, dynamic shared memory a block and resident blocks an
+// SM of one kernel.
+template <typename Kernel>
+int kernel_resources(Kernel kernel, int smem, int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[2], kernel, THREADS, smem);
+  out[0] = attr.numRegs;
+  out[1] = smem;
+  return (int)err;
 }
 
 }  // namespace
 
 extern "C" {
 
-// o, do: (rows, hd) bf16 contiguous, hd 64 or 128; delta: (rows,) fp32.
-// Launches the D pass, delta[r] = sum_c o[r, c] * do[r, c].  Returns a CUDA
-// error code (0 on success), or cudaErrorInvalidValue for another hd.
-int flash_attention_bwd_delta_bf16(const void* o, const void* dout, void* delta, int rows,
-                                   int hd, void* stream) {
+// q, o, do, qs: (rows, hd) bf16 contiguous, hd 64 or 128; delta: (rows,)
+// fp32.  Launches the D pass: delta[r] = sum_c o[r, c] * do[r, c] and qs =
+// bf16(q * scale), scale already rounded to bf16.  Returns a CUDA error code
+// (0 on success), or cudaErrorInvalidValue for another hd.
+int flash_attention_bwd_delta_bf16(const void* q, const void* o, const void* dout, void* delta,
+                                   void* qs, int rows, int hd, float scale, void* stream) {
   if (hd != 128 && hd != 64) return (int)cudaErrorInvalidValue;
   delta_kernel<<<(rows + THREADS / 32 - 1) / (THREADS / 32), THREADS, 0,
                  reinterpret_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const bf16*>(o), reinterpret_cast<const bf16*>(dout),
-      reinterpret_cast<float*>(delta), rows, hd);
+      reinterpret_cast<const bf16*>(q), reinterpret_cast<const bf16*>(o),
+      reinterpret_cast<const bf16*>(dout), reinterpret_cast<float*>(delta),
+      reinterpret_cast<bf16*>(qs), rows, hd, scale);
   return (int)cudaGetLastError();
 }
 
-// q, do: (B, H, S, hd) bf16 contiguous; k, v, dk, dv: (B, kvH, S, hd) bf16
-// contiguous with H % kvH == 0; hd 64 or 128; kv_valid: (B, S) int32 or NULL
-// (all valid); lse, delta: (B, H, S) fp32, delta from the D pass.  scale: the
-// softmax scale already rounded to bf16.  Launches the dK/dV kernel.
-// Returns a CUDA error code (0 on success), or cudaErrorInvalidValue for
-// another hd.
-int flash_attention_bwd_dkdv_bf16(const void* q, const void* k, const void* v,
+// qs, do: (B, H, S, hd) bf16 contiguous, qs from the D pass; k, v, dk, dv:
+// (B, kvH, S, hd) bf16 contiguous with H % kvH == 0; hd 64 or 128; kv_valid:
+// (B, S) int32 or NULL (all valid); lse, delta: (B, H, S) fp32, delta from
+// the D pass.  Launches the dK/dV kernel.  Returns a CUDA error code (0 on
+// success), or cudaErrorInvalidValue for another hd.
+int flash_attention_bwd_dkdv_bf16(const void* qs, const void* k, const void* v,
                                   const void* kv_valid, const void* lse, const void* dout,
-                                  const void* delta, void* dk, void* dv, int B, int H,
-                                  int kvH, int S, int hd, float scale, void* stream) {
+                                  const void* delta, void* dk, void* dv, int B, int H, int kvH,
+                                  int S, int hd, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (hd == 128)
-    return launch_dkdv<128>(q, k, v, kv_valid, lse, dout, delta, dk, dv, B, H, kvH, S, scale, st);
-  if (hd == 64)
-    return launch_dkdv<64>(q, k, v, kv_valid, lse, dout, delta, dk, dv, B, H, kvH, S, scale, st);
+  if (hd == 128) return launch_dkdv<128>(qs, k, v, kv_valid, lse, dout, delta, dk, dv, B, H, kvH, S, st);
+  if (hd == 64) return launch_dkdv<64>(qs, k, v, kv_valid, lse, dout, delta, dk, dv, B, H, kvH, S, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// Shapes as above; delta from the D pass; dq:
-// (B, H, S, hd) bf16, the gradient with respect to the unscaled q.
-int flash_attention_bwd_dq_bf16(const void* q, const void* k, const void* v,
+// Shapes as above; scale: the softmax scale rounded to bf16; dq: (B, H, S,
+// hd) bf16, the gradient with respect to the unscaled q.  Launches the dQ
+// kernel.
+int flash_attention_bwd_dq_bf16(const void* qs, const void* k, const void* v,
                                 const void* kv_valid, const void* lse, const void* dout,
                                 const void* delta, void* dq, int B, int H, int kvH, int S,
                                 int hd, float scale, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (hd == 128) return launch_dq<128>(q, k, v, kv_valid, lse, dout, delta, dq, B, H, kvH, S, scale, st);
-  if (hd == 64) return launch_dq<64>(q, k, v, kv_valid, lse, dout, delta, dq, B, H, kvH, S, scale, st);
+  if (hd == 128) return launch_dq<128>(qs, k, v, kv_valid, lse, dout, delta, dq, B, H, kvH, S, scale, st);
+  if (hd == 64) return launch_dq<64>(qs, k, v, kv_valid, lse, dout, delta, dq, B, H, kvH, S, scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Resources of the product kernels at head dim hd, for reports: out[0..2] =
+// registers a thread, dynamic shared memory bytes a block and resident
+// blocks an SM of the dK/dV kernel, out[3..5] the same of the dQ kernel.
+int flash_attention_bwd_resources(int hd, int* out) {
+  if (hd == 128) {
+    const int err = kernel_resources(dkdv_kernel<128>, DkdvSmem<128>::BYTES, out);
+    return err ? err : kernel_resources(dq_kernel<128>, DqSmem<128>::BYTES, out + 3);
+  }
+  if (hd == 64) {
+    const int err = kernel_resources(dkdv_kernel<64>, DkdvSmem<64>::BYTES, out);
+    return err ? err : kernel_resources(dq_kernel<64>, DqSmem<64>::BYTES, out + 3);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

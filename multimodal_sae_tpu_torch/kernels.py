@@ -4,7 +4,9 @@ Each source is compiled by `nvcc` for sm_90a into its own shared library with
 a plain C interface, loaded through `ctypes`: a build takes seconds, against
 minutes for an extension that includes PyTorch's headers.  Libraries land in
 `multimodal_sae_tpu_torch/_build/` (git-ignored), named by a hash of their
-source, so an edited source builds anew and a stale library is never loaded.
+source and of the headers beside it (`csrc/*.cuh`, which are no libraries of
+their own), so an edited source or header builds anew and a stale library is
+never loaded.
 `build()` starts one `nvcc` per missing library, all at once, and waits for
 them; `load(name)` builds on first use.  Nothing here runs at import time.
 """
@@ -37,9 +39,13 @@ _libs: Dict[str, ctypes.CDLL] = {}
 
 
 def library_path(src: Path) -> Path:
-    """Where the library built from `src` lives, named by its content."""
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{src.stem}-{digest}.so"
+    """Where the library built from `src` lives, named by its content and
+    that of every header (`*.cuh`) beside it, which a source may include."""
+    h = hashlib.sha1(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:12]}.so"
 
 
 def _nvcc() -> str:

@@ -31,7 +31,7 @@ launches = 0
 """Forward kernel launches so far; a run sets it to 0 and reads it after."""
 
 bwd_delta_launches = 0
-"""Launches of the backward's D pass, rowsum(o * do)."""
+"""Launches of the backward's D pass: rowsum(o * do), and q * scale in bf16."""
 
 bwd_dkdv_launches = 0
 """Launches of the backward's dK/dV kernel."""
@@ -121,10 +121,13 @@ def flash_attention_plain(
     return flash_attention_fwd_plain(q, k, v, pad_mask, scale)[0]
 
 
-def _fn(name: str, library: str, n_ptr: int):
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _fn(name: str, library: str, argtypes):
     fn = getattr(kernels.load(library), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = argtypes
     return fn
 
 
@@ -140,13 +143,17 @@ def _check_kernel_inputs(what: str, *tensors: torch.Tensor) -> None:
         raise ValueError(f"{what} kernel needs contiguous inputs")
 
 
-def _kernel_args(q, pad_mask, scale):
-    """(int32 key mask or None, the scale rounded to q's dtype)."""
-    kv_valid = None
-    if pad_mask is not None:
-        kv_valid = pad_mask.to(device=q.device, dtype=torch.int32).contiguous()
-    # Rounded to q's dtype, as the JAX wrapper folds it (llama.py:330).
-    return kv_valid, float(torch.tensor(scale, dtype=q.dtype))
+def _kv_valid(q, pad_mask):
+    """The pad mask as the kernels' contiguous int32 key mask, or None."""
+    if pad_mask is None:
+        return None
+    return pad_mask.to(device=q.device, dtype=torch.int32).contiguous()
+
+
+def _scale_q(q, scale) -> float:
+    """The scale rounded to q's dtype, as the JAX wrapper folds it
+    (llama.py:330)."""
+    return float(torch.tensor(scale, dtype=q.dtype))
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -170,11 +177,11 @@ def flash_attention_fwd(q, k, v, pad_mask, scale, need_lse: bool = False):
     lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device) if need_lse else None
     if out.numel() == 0:
         return out, lse
-    kv_valid, scale_q = _kernel_args(q, pad_mask, scale)
+    kv_valid = _kv_valid(q, pad_mask)
     with torch.cuda.device(q.device):
-        err = _fn("flash_attention_fwd_bf16", "flash_attention", 6)(
+        err = _fn("flash_attention_fwd_bf16", "flash_attention", [_P] * 6 + [_I] * 5 + [_F, _P])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_valid), out.data_ptr(), _ptr(lse),
-            B, H, k.shape[1], S, hd, scale_q, torch.cuda.current_stream().cuda_stream,
+            B, H, k.shape[1], S, hd, _scale_q(q, scale), torch.cuda.current_stream().cuda_stream,
         )
     kernels.check(err, "flash_attention")
     launches += 1
@@ -233,62 +240,73 @@ def flash_attention_bwd(q, k, v, pad_mask, o, lse, do, scale):
         raise ValueError(f"lse must be a contiguous (B, H, S) fp32 tensor, got {lse.dtype} {tuple(lse.shape)}")
     if q.numel() == 0:
         return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = bwd_delta(o, do)
-    dk, dv = bwd_dkdv(q, k, v, pad_mask, lse, do, delta, scale)
-    return bwd_dq(q, k, v, pad_mask, lse, do, delta, scale), dk, dv
+    delta, qs = bwd_delta(q, o, do, scale)
+    dk, dv = bwd_dkdv(qs, k, v, pad_mask, lse, do, delta)
+    return bwd_dq(qs, k, v, pad_mask, lse, do, delta, scale), dk, dv
 
 
-def bwd_delta(o, do):
-    """delta (B, H, S) fp32 = rowsum(o * do): the D pass on checked CUDA
-    tensors (`flash_attention_bwd` checks them)."""
+def bwd_delta(q, o, do, scale):
+    """(delta, qs): the D pass on checked CUDA tensors (`flash_attention_bwd`
+    checks them), delta (B, H, S) fp32 = rowsum(o * do) and qs = q * scale
+    in bf16, the scaled q both product kernels read."""
     global bwd_delta_launches
     B, H, S, hd = o.shape
     delta = torch.empty(B, H, S, dtype=torch.float32, device=o.device)
-    fn = kernels.load("flash_attention_bwd").flash_attention_bwd_delta_bf16
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    qs = torch.empty_like(q)
+    fn = _fn("flash_attention_bwd_delta_bf16", "flash_attention_bwd", [_P] * 5 + [_I] * 2 + [_F, _P])
     with torch.cuda.device(o.device):
-        err = fn(o.data_ptr(), do.data_ptr(), delta.data_ptr(), B * H * S, hd,
-                 torch.cuda.current_stream().cuda_stream)
+        err = fn(q.data_ptr(), o.data_ptr(), do.data_ptr(), delta.data_ptr(), qs.data_ptr(), B * H * S, hd,
+                 _scale_q(q, scale), torch.cuda.current_stream().cuda_stream)
     kernels.check(err, "flash_attention_bwd D pass")
     bwd_delta_launches += 1
-    return delta
+    return delta, qs
 
 
-def bwd_dkdv(q, k, v, pad_mask, lse, do, delta, scale):
-    """(dk, dv): the dK/dV kernel on checked CUDA tensors, with `delta`
-    from `bwd_delta`."""
+def bwd_dkdv(qs, k, v, pad_mask, lse, do, delta):
+    """(dk, dv): the dK/dV kernel on checked CUDA tensors, with `delta` and
+    the scaled `qs` from `bwd_delta`."""
     global bwd_dkdv_launches
-    B, H, S, hd = q.shape
+    B, H, S, hd = qs.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    kv_valid, scale_q = _kernel_args(q, pad_mask, scale)
-    with torch.cuda.device(q.device):
-        err = _fn("flash_attention_bwd_dkdv_bf16", "flash_attention_bwd", 9)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_valid), lse.data_ptr(),
+    kv_valid = _kv_valid(qs, pad_mask)
+    with torch.cuda.device(qs.device):
+        err = _fn("flash_attention_bwd_dkdv_bf16", "flash_attention_bwd", [_P] * 9 + [_I] * 5 + [_P])(
+            qs.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_valid), lse.data_ptr(),
             do.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, H, k.shape[1], S, hd, scale_q, torch.cuda.current_stream().cuda_stream,
+            B, H, k.shape[1], S, hd, torch.cuda.current_stream().cuda_stream,
         )
     kernels.check(err, "flash_attention_bwd dk/dv")
     bwd_dkdv_launches += 1
     return dk, dv
 
 
-def bwd_dq(q, k, v, pad_mask, lse, do, delta, scale):
-    """dq: the dQ kernel on checked CUDA tensors, with `delta` from
-    `bwd_delta`."""
+def bwd_dq(qs, k, v, pad_mask, lse, do, delta, scale):
+    """dq: the dQ kernel on checked CUDA tensors, with `delta` and the
+    scaled `qs` from `bwd_delta`."""
     global bwd_dq_launches
-    B, H, S, hd = q.shape
-    dq = torch.empty_like(q)
-    kv_valid, scale_q = _kernel_args(q, pad_mask, scale)
-    with torch.cuda.device(q.device):
-        err = _fn("flash_attention_bwd_dq_bf16", "flash_attention_bwd", 8)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_valid), lse.data_ptr(), do.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(),
-            B, H, k.shape[1], S, hd, scale_q, torch.cuda.current_stream().cuda_stream,
+    B, H, S, hd = qs.shape
+    dq = torch.empty_like(qs)
+    kv_valid = _kv_valid(qs, pad_mask)
+    with torch.cuda.device(qs.device):
+        err = _fn("flash_attention_bwd_dq_bf16", "flash_attention_bwd", [_P] * 8 + [_I] * 5 + [_F, _P])(
+            qs.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(kv_valid), lse.data_ptr(),
+            do.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            B, H, k.shape[1], S, hd, _scale_q(qs, scale), torch.cuda.current_stream().cuda_stream,
         )
     kernels.check(err, "flash_attention_bwd dq")
     bwd_dq_launches += 1
     return dq
+
+
+def bwd_resources(hd: int) -> dict:
+    """Registers a thread, dynamic shared memory a block and resident blocks
+    an SM of the backward's dK/dV and dQ kernels at head dim `hd`, as the
+    CUDA runtime reports them (needs the card)."""
+    out = (ctypes.c_int * 6)()
+    fn = _fn("flash_attention_bwd_resources", "flash_attention_bwd", [_I, _P])
+    kernels.check(fn(hd, out), "flash_attention_bwd resources")
+    keys = ("registers", "smem_bytes", "blocks_per_sm")
+    return {"dkdv": dict(zip(keys, out[:3])), "dq": dict(zip(keys, out[3:]))}
 
 
 class FlashAttention(torch.autograd.Function):
