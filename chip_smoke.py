@@ -12,7 +12,11 @@ Phases; any failure raises and ends the run with a non-zero exit code:
    main path's two filter levels and at bf16 block 128, then at every block
    it takes;
 3. flash_attention (K3) against its plain version at LLaMA-3-8B's attention
-   shape, unmasked and with one row left-padded by 100, then at edge shapes;
+   shape, unmasked and with one row left-padded by 100, each timed as the
+   median, min and max of 5 repeats beside its bound, its TFLOP/s and SDPA
+   (with the pad mask where there is one), with the forward kernel's
+   registers, shared memory and blocks per SM at hd 128 and 64; then at edge
+   shapes;
 4. flash_attention_bwd (K3 backward): the kernels' forward and backward
    against the plain pair at (2, 32, 8, 2,432, 128) bf16, unmasked and with
    row 0 left-padded by 300 (dO zero on its rows without a valid key): the
@@ -22,7 +26,8 @@ Phases; any failure raises and ends the run with a non-zero exit code:
    64-row tile) held the same way; then timed at B = 8 (the D pass, dK/dV
    and dQ apart, with each product kernel's registers, shared memory and
    blocks per SM) beside its bound and SDPA's GQA backward, and the
-   forward with lse beside its bound and SDPA's GQA forward;
+   forward with lse (5 repeats, its TFLOP/s) beside its bound and SDPA's
+   GQA forward;
 5. cache_path: a random LLaMA-3-8B-width subject (25 layers for hookpoint
    layers.24, bf16, flash attention) feeding a 131,072-latent k=256 fp32 SAE
    (saved with `save_to_disk`, read back through `load_saes`) through
@@ -125,6 +130,12 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_repeats(fn, repeats: int = 5) -> dict:
+    """Median, min and max of `repeats` calls of time_ms(fn), and them all."""
+    ts = sorted(time_ms(fn) for _ in range(repeats))
+    return {"median": ts[len(ts) // 2], "min": ts[0], "max": ts[-1], "all": ts}
 
 
 def emit(obj: dict) -> None:
@@ -272,16 +283,20 @@ def phase_flash_attention(dev) -> dict:
         pairs = torch.tril(torch.ones(S, S, device=dev))[None] * real[:, None, :].float()
         flops = 4.0 * hd * H * pairs.sum().item()
         nbytes = (2 * B * H * S * hd + 2 * B * kvH * S * hd) * 2
+        repeats = time_repeats(lambda: fa.flash_attention(q, k, v, pad_mask, scale))
         line = {
             "phase": "flash_attention", "shape": [B, H, kvH, S, hd], "padded": padded,
             "max_abs_err": err, "atol": K3_ATOL, "rtol": K3_RTOL,
-            "kernel_ms": time_ms(lambda: fa.flash_attention(q, k, v, pad_mask, scale)),
+            "kernel_ms": repeats["median"], "kernel_ms_repeats": repeats,
+            "tflops": flops / repeats["median"] / 1e9,
             "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v, pad_mask, scale), iters=3),
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                 q, kr, vr, attn_mask=sdpa_mask, is_causal=sdpa_mask is None, scale=scale)),
             "bound_ms": max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3,
             "bound_by": "operations" if flops / BF16_FLOPS > nbytes / HBM_BYTES_PER_S else "bytes",
         }
+        if not padded:
+            line["resources"] = {hd_: fa.fwd_resources(hd_) for hd_ in (128, 64)}
         emit(line)
         result["max_abs_err"] = max(result["max_abs_err"], err)
         if not padded:
@@ -430,7 +445,7 @@ def phase_flash_attention_bwd(dev) -> dict:
     q, k, v, do = inputs(B)
     o, lse = fa.flash_attention_fwd(q, k, v, None, scale, need_lse=True)
     kernel_ms = time_ms(lambda: fa.flash_attention_bwd(q, k, v, None, o, lse, do, scale))
-    forward_ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, None, scale, need_lse=True))
+    forward = time_repeats(lambda: fa.flash_attention_fwd(q, k, v, None, scale, need_lse=True))
     forward_library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q, k, v, is_causal=True, scale=scale, enable_gqa=True))
     delta, qs = fa.bwd_delta(q, o, do, scale)
@@ -470,7 +485,9 @@ def phase_flash_attention_bwd(dev) -> dict:
         "tflops": flops / kernel_ms / 1e9,
         "dkdv_tflops": 8 * hd * pairs / dkdv_ms / 1e9, "dq_tflops": 6 * hd * pairs / dq_ms / 1e9,
         "resources": fa.bwd_resources(hd),
-        "forward_with_lse_ms": forward_ms, "forward_with_lse_library_ms": forward_library_ms,
+        "forward_with_lse_ms": forward["median"], "forward_with_lse_ms_repeats": forward,
+        "forward_with_lse_tflops": fwd_flops / forward["median"] / 1e9,
+        "forward_with_lse_library_ms": forward_library_ms,
         "forward_with_lse_bound_ms": max(fwd_flops / BF16_FLOPS, fwd_bytes / HBM_BYTES_PER_S) * 1e3,
     }
     emit(line)

@@ -36,7 +36,8 @@ from ..sae.model import pre_acts as sae_pre_acts
 logger = logging.getLogger(__name__)
 
 PREALLOC_MAX_ENTRIES = 128 * 1024 * 1024
-"""Cap on the entries `run` pre-faults per hookpoint (~3.6 GB)."""
+"""Default cap on the entries `run` pre-faults per hookpoint (~3.6 GB);
+`MMSAE_PREALLOC_MAX_ENTRIES` overrides it, 0 turning pre-faulting off."""
 
 _TORCH_DTYPE = {
     np.dtype(np.float32): torch.float32,
@@ -274,8 +275,10 @@ class FeatureCache:
     def _preallocate_arenas(self, n_tokens: int, tokens=None):
         """Size each arena from the run-wide estimate: `n_tokens` per row
         times the dataset length where it has one, k entries per token,
-        scaled by the filter's coverage."""
-        if n_tokens <= 0:
+        scaled by the filter's coverage, capped by `MMSAE_PREALLOC_MAX_ENTRIES`
+        (default `PREALLOC_MAX_ENTRIES`; 0 disables)."""
+        cap = int(os.environ.get("MMSAE_PREALLOC_MAX_ENTRIES", PREALLOC_MAX_ENTRIES))
+        if cap <= 0 or n_tokens <= 0:
             return
         try:
             n_rows = len(tokens) if tokens is not None else 0
@@ -289,7 +292,7 @@ class FeatureCache:
                 if sel is not None and self.width:
                     expected = int(expected * (len(sel) / self.width)) + 1
             self.cache.preallocate(
-                module_path, min(expected, PREALLOC_MAX_ENTRIES), act_dtype=self.activation_dtype
+                module_path, min(expected, cap), act_dtype=self.activation_dtype
             )
 
     def run(self, n_tokens: int, tokens, progress: bool = True):

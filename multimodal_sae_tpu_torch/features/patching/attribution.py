@@ -30,7 +30,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from ...device import DeviceLike, resolve_device
+from ...device import DeviceLike, resolve_device, set_precision
 from ...sae import Sae, decode, pre_acts, select_topk
 from .utils import get_logit_diff, spliced_forward_with_delta
 
@@ -54,6 +54,9 @@ class FastAttribution:
     k == width case the dropped slot decodes as 0, as there."""
 
     def __init__(self, model, hook: str, sae: Sae, batch: dict, metric: Callable):
+        # The fp32 prefix encode runs with TF32 off, as the cache path runs
+        # it: TF32 would move the top-k boundaries the pool is read from.
+        set_precision()
         self.model, self.hook, self.sae, self.metric = model, hook, sae, metric
         self.mask = batch.get("attention_mask")
         with torch.no_grad():
@@ -138,6 +141,7 @@ def fast_attribution_maps(
     per chunk (the ragged tail padded with its last feature, then trimmed).
     A chunk that runs out of device memory is retried at half the width,
     down to 1.  Returns {hook: [(B, S) saliency per feature]}."""
+    set_precision()
     indices = np.asarray(indices)
     step = build_fast_attribution(model, hook, sae, batch, metric)
     pbar = _progress(len(indices), progress)
@@ -243,6 +247,7 @@ class Attribution:
         self.tokenizer = tokenizer
         self.feature_batch = feature_batch
         dev = resolve_device(device)
+        set_precision()
         if not os.path.isdir(sae_path):
             raise FileNotFoundError(f"{sae_path} is not a local SAE directory (hub downloads need a network)")
         if selected_sae is not None:

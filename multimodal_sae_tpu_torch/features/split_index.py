@@ -73,11 +73,19 @@ def index_path(split_path: str) -> str:
     return root + INDEX_SUFFIX
 
 
+def _disabled() -> bool:
+    """`MMSAE_NO_FEATIDX` set (and not "0") turns the sidecars off."""
+    return os.environ.get("MMSAE_NO_FEATIDX", "") not in ("", "0")
+
+
 def write_index(split_path: str, feats: np.ndarray) -> bool:
     """Persist the sidecar for one split; `feats` is its feature column in
     file order.  Best-effort: a missing sidecar costs speed, never
     correctness, so an unwritable directory returns False with a warning.
-    Written to a temp file and renamed, so no reader sees a torn index."""
+    Written to a temp file and renamed, so no reader sees a torn index.
+    Returns False without writing under `MMSAE_NO_FEATIDX`."""
+    if _disabled():
+        return False
     feats = np.asarray(feats)
     if feats.size and (int(feats.min()) < 0 or int(feats.max()) >= np.iinfo(np.int32).max):
         logger.warning(f"not indexing {split_path}: feature ids outside int32 range")
@@ -114,8 +122,11 @@ def write_index(split_path: str, feats: np.ndarray) -> bool:
 
 
 def read_index(split_path: str, n_entries: int) -> Optional[Tuple[np.ndarray, np.ndarray]]:
-    """`(order, feats_sorted)` for a split, or None when the sidecar is
-    absent, unreadable, or stale by the split's entry count and byte size."""
+    """`(order, feats_sorted)` for a split, or None when the sidecars are
+    disabled (`MMSAE_NO_FEATIDX`) or this one is absent, unreadable, or stale
+    by the split's entry count and byte size."""
+    if _disabled():
+        return None
     target = index_path(split_path)
     try:
         if not os.path.exists(target):

@@ -188,6 +188,18 @@ def flash_attention_fwd(q, k, v, pad_mask, scale, need_lse: bool = False):
     return out, lse
 
 
+def fwd_resources(hd: int) -> dict:
+    """Registers a thread (at launch, before the kernel's setmaxnreg moves
+    them to its consumer warpgroups), dynamic shared memory a block and
+    resident blocks an SM of the forward kernel at head dim `hd`, in its
+    two-head form (the main path's), as the CUDA runtime reports them
+    (needs the card)."""
+    out = (ctypes.c_int * 3)()
+    fn = _fn("flash_attention_fwd_resources", "flash_attention", [_I, _P])
+    kernels.check(fn(hd, out), "flash_attention resources")
+    return dict(zip(("registers", "smem_bytes", "blocks_per_sm"), out))
+
+
 def flash_attention_bwd_plain(q, k, v, pad_mask, o, lse, do, scale):
     """(dq, dk, dv): the math of jax's `mha_reference_bwd` in fp32, each
     gradient in its input's dtype.  P is rebuilt from the logits, jax's

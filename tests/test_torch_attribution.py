@@ -232,6 +232,40 @@ def test_fast_path_matches_general_path(jax_llama, tmp_path):
             np.testing.assert_allclose(f, g, **TOL)
 
 
+@pytest.mark.parametrize("entry", ["FastAttribution", "fast_attribution_maps", "Attribution"])
+def test_entry_points_turn_tf32_off(jax_llama, tmp_path, monkeypatch, entry):
+    """Each attribution entry point runs the fp32 prefix encode with TF32
+    off, whatever the caller left set, as the cache path does."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    model = LlamaModel(llama_params_from_jax(jax_llama, device="cpu"), LlamaConfig(**TINY))
+    _, sae = _sae_pair()
+    batch = _batch(False)
+    metric = partial(get_logit_diff, answer_token_indices=torch.as_tensor(ANSWERS))
+    if entry == "FastAttribution":
+        A.FastAttribution(model, HOOK, sae, batch, metric)
+    elif entry == "fast_attribution_maps":
+        # The entry point itself, not only the step it builds.
+        monkeypatch.setattr(A, "build_fast_attribution", lambda *a: lambda f: torch.zeros(len(f), 2, 20))
+        fast_attribution_maps(model, HOOK, sae, batch, metric, [0], feature_batch=1, progress=False)
+    else:
+        from PIL import Image
+
+        Image.new("RGB", (8, 8)).save(tmp_path / "x.png")
+        (tmp_path / "p.json").write_text(json.dumps(
+            [{"prompt": "abq", "answer": "c", "baseline": "d", "image": str(tmp_path / "x.png")}]))
+        sae.save_to_disk(tmp_path / "saes" / HOOK)
+
+        class Model:
+            def prepare_inputs(self, images=None, prompt_ids=None):
+                return {"input_ids": np.asarray(prompt_ids, dtype=np.int64)}
+
+        Attribution(Model(), Tok(), sae_path=str(tmp_path / "saes"), data_path=str(tmp_path / "p.json"),
+                    selected_sae=HOOK, device="cpu")
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
 def test_general_path_on_a_padded_batch(jax_llama):
     """The general path with one splice equals the fast path on a
     left-padded batch.  Two splices at once differentiate the upper splice's

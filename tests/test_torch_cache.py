@@ -41,7 +41,7 @@ from multimodal_sae_tpu.sae.model import pre_acts as jax_pre_acts
 from multimodal_sae_tpu_torch.config import CacheConfig, SaeConfig
 from multimodal_sae_tpu_torch.convert import llama_params_from_jax, sae_params_from_jax
 from multimodal_sae_tpu_torch.features.cache import Cache, FeatureCache
-from multimodal_sae_tpu_torch.features.split_index import mmap_safetensors, read_index
+from multimodal_sae_tpu_torch.features.split_index import index_path, mmap_safetensors, read_index, write_index
 from multimodal_sae_tpu_torch.models import SyntheticActivationSource
 from multimodal_sae_tpu_torch.models.llama import LlamaConfig, LlamaModel
 from multimodal_sae_tpu_torch.sae import Sae
@@ -123,6 +123,53 @@ def test_writer_outputs_byte_equal(tmp_path, streaming):
     n = mmap_safetensors(split)["locations"].shape[0]
     order, feats = read_index(split, n)
     assert n > 0 and (np.diff(feats) >= 0).all()
+
+
+def test_writer_outputs_byte_equal_with_sidecars_disabled(tmp_path, monkeypatch):
+    """With MMSAE_NO_FEATIDX set, both packages write the same split bytes
+    and no `.featidx`, and the port reads no sidecar."""
+    monkeypatch.setenv("MMSAE_NO_FEATIDX", "1")
+    batches = _jax_topk_batches()
+    n_splits = 4
+    for name, cls, cache_cls, wrap in (
+        ("jax", JaxFeatureCache, JaxCache, lambda v, i: (v, i)),
+        ("port", FeatureCache, Cache, lambda v, i: (torch.from_numpy(v.copy()), torch.from_numpy(i.copy()), None)),
+    ):
+        fc = _fc_shell(cls, cache_cls)
+        for b, (vals, idx) in enumerate(batches):
+            fc._host_step({"m": wrap(vals, idx)}, b, len(vals))
+        fc.cache.save()
+        fc.save_splits(n_splits, str(tmp_path / name))
+        fc.concate_safetensors(n_splits, str(tmp_path / name))
+    port_files = _digests(tmp_path / "port" / "m")
+    assert len(port_files) == n_splits and all(f.endswith(".safetensors") for f in port_files)
+    assert port_files == _digests(tmp_path / "jax" / "m")
+    split = str(tmp_path / "port" / "m" / "0_15.safetensors")
+    n = mmap_safetensors(split)["locations"].shape[0]
+    assert not write_index(split, mmap_safetensors(split)["locations"][:, 2])
+    assert not os.path.exists(index_path(split))
+    monkeypatch.delenv("MMSAE_NO_FEATIDX")
+    assert write_index(split, mmap_safetensors(split)["locations"][:, 2])
+    assert read_index(split, n) is not None
+    monkeypatch.setenv("MMSAE_NO_FEATIDX", "1")
+    assert read_index(split, n) is None
+
+
+@pytest.mark.parametrize("cap", ["0", "100", None], ids=["disabled", "small", "default"])
+def test_prefault_cap_follows_the_environment(monkeypatch, cap):
+    """`MMSAE_PREALLOC_MAX_ENTRIES` caps the entries `run` pre-faults per
+    hookpoint, 0 turning it off, as the JAX package reads it."""
+    if cap is None:
+        monkeypatch.delenv("MMSAE_PREALLOC_MAX_ENTRIES", raising=False)
+    else:
+        monkeypatch.setenv("MMSAE_PREALLOC_MAX_ENTRIES", cap)
+    fc = _fc_shell(FeatureCache, Cache)
+    fc.submodule_dict = {"m": Sae(16, SaeConfig(num_latents=64, k=8), seed=0, device="cpu")}
+    asked = []
+    monkeypatch.setattr(fc.cache, "preallocate", lambda m, n, act_dtype: asked.append((m, n)))
+    fc._preallocate_arenas(16, _rows(n=4, s=16))
+    expected = {"0": [], "100": [("m", 100)], None: [("m", 16 * 4 * 8)]}[cap]
+    assert asked == expected
 
 
 def test_writer_matches_the_locked_golden_digests(tmp_path):
