@@ -34,11 +34,19 @@ Phases; any failure raises and ends the run with a non-zero exit code:
    `FeatureCache` with streaming splits over 4 batches of 8 x 2,048 tokens,
    then `save_splits` and `concate_safetensors`; checks the launch counts,
    the merged entries, the feature ranges and one batch's top-k;
-6. gather_rows (K2), inside the attribution phase before its counted run,
+6. gather_rows (K2), inside the attribution phase after its counted run,
    on the subject's clean top-k (2,432 tokens x 256 rows of a
    131,072 x 4,096 fp32 decoder): copy mode bit-exact against
    `W[idx]` and timed beside it, decode mode within a stated fp32 bound of
    its plain version, timed beside its bound and `embedding_bag`;
+   then its splice mode (`splice_decode`, the attribution chunk's decode)
+   equal bit for bit to the parent path (`gather_decode` of `reselect`'s
+   lists + b_dec, cast to the splice's dtype) and within a stated bound of
+   its plain version (equal bits on the rows it copies) on the full-width
+   chunk of the 8 inside features, the chunk of the 8 outside ones, 1
+   feature, 32 features on 256 tokens, a small k == width case and a small
+   bf16 decoder; both chunks timed (median of 5) beside the parent path,
+   the hit count, the two bound terms and `embedding_bag`;
 7. attribution_path: the full 32-layer random LLaMA-3-8B-width subject
    (bf16, flash attention, LM head) and the 131,072-latent SAE with its
    decoder (saved, then loaded with `decoder=True`); `fast_attribution_maps`
@@ -57,6 +65,7 @@ Needs one CUDA card; exits non-zero without one.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -69,6 +78,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM data sheet
+FP32_FMAS = 33.5e12  # 67 TFLOP/s fp32 on the CUDA cores, H100 SXM data sheet
 K3_ATOL = 2e-2
 K3_RTOL = 2e-2
 # K3 tolerance, |kernel - plain| <= atol + rtol * |plain|: both outputs are
@@ -152,6 +162,7 @@ def _counted_modules():
         "flash_attention_bwd_dkdv": (flash_attention, "bwd_dkdv_launches"),
         "flash_attention_bwd_dq": (flash_attention, "bwd_dq_launches"),
         "gather_rows": (gather_rows, "launches"),
+        "splice_decode": (gather_rows, "splice_launches"),
     }
 
 
@@ -569,6 +580,9 @@ def phase_cache_path(dev, card: str) -> dict:
         fc = CountingCache(lambda b: model.capture(b, [hook]), saes, batch_size=batch_size)
         fc.enable_streaming(save_dir, n_splits=n_splits)
         torch.cuda.reset_peak_memory_stats()
+        # Collect garbage before each timed run, so that no collection pass
+        # (a long one once the profiler's events are garbage) lands inside it.
+        gc.collect()
         reset_kernel_counts()
         t0 = time.perf_counter()
         fc.run(ctx_len, rows, progress=False)
@@ -578,7 +592,7 @@ def phase_cache_path(dev, card: str) -> dict:
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         expected = {"block_max": 2 * n_batches, "flash_attention": 25 * n_batches,
                     "flash_attention_bwd_delta": 0, "flash_attention_bwd_dkdv": 0,
-                    "flash_attention_bwd_dq": 0, "gather_rows": 0}
+                    "flash_attention_bwd_dq": 0, "gather_rows": 0, "splice_decode": 0}
         if launches != expected:
             raise AssertionError(f"kernel launches {launches} over {n_batches} batches, expected {expected}")
         t0 = time.perf_counter()
@@ -712,6 +726,168 @@ def check_gather_rows(W: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor, ch
             "bound_by": "bytes", "library_ms": decode["library_ms"], "max_abs_err": err}
 
 
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    ib = torch.int32 if a.dtype == torch.float32 else torch.int16
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.view(ib), b.view(ib))
+
+
+def _splice_parent(wide_idx, wide_vals, drop, k, W, b, clean):
+    """The parent path: `reselect`'s (F·N, k) lists (the pool without the
+    dropped entry, cut to k), K2's decode mode, + b in W's dtype, cast."""
+    from multimodal_sae_tpu_torch.ops import gather_rows as gr
+
+    N = wide_idx.shape[0]
+    rows = torch.arange(N, device=drop.device).repeat(drop.shape[0])
+    vals, idx = gr.splice_lists(wide_idx, wide_vals, rows, drop.reshape(-1), k)
+    return (gr.gather_decode(idx, vals, W) + b).to(clean.dtype), (vals, idx)
+
+
+def _small_pool(gen, dev, N, width, kw, d, dtype):
+    """A random decoder (width, d) of `dtype` with a bias, and N tokens'
+    descending top-kw pools over it."""
+    W = torch.randn(width, d, generator=gen, device=dev).to(dtype)
+    b = torch.randn(d, generator=gen, device=dev).to(dtype)
+    vals, idx = torch.topk(torch.rand(N, width, generator=gen, device=dev), kw)
+    return W, b, idx.to(torch.int32), vals.to(dtype)
+
+
+def _splice_err_bound(pool_vals, W, b, k, out_dtype) -> float:
+    """Bound on |splice - plain| for one case.  Both sum at most k fp32
+    products in their own order (check_gather_rows' bound, with the pool's
+    sum of |vals| bounding any list's); then each rounds to W's dtype, adds b
+    there and casts to the splice's dtype.  A rounding of unit roundoff u
+    moves two values e apart to at most e + 2u·M apart, M their largest
+    magnitude: the sum's bound plus max |b|."""
+    s = pool_vals.float().abs().sum(-1).max().item() * W.float().abs().max().item()
+    err = 2 * k * 2.0 ** -24 * s
+    m = s + b.float().abs().max().item() + err
+    if W.dtype == torch.bfloat16:  # the sum rounds to bf16, + b rounds in bf16; the cast is exact
+        roundings = (2.0 ** -8, 2.0 ** -8)
+    else:  # + b rounds in fp32, then the cast to a bf16 splice
+        roundings = (2.0 ** -24,) + ((2.0 ** -8,) if out_dtype == torch.bfloat16 else ())
+    return err + sum(2 * u * m for u in roundings)
+
+
+def _check_splice_case(name, args) -> tuple:
+    """One case of K2's splice mode: equal bits to the parent path (integer
+    views), and against the plain version within `_splice_err_bound`, with
+    equal bits on every copy row (drop >= k)."""
+    from multimodal_sae_tpu_torch.ops import gather_rows as gr
+
+    wide_idx, wide_vals, drop, k, W, b, clean = args
+    got = gr.splice_decode(*args)
+    ref, lists = _splice_parent(*args)
+    plain = gr.splice_decode_plain(*args)
+    torch.cuda.synchronize()
+    if not _bits_equal(got, ref):
+        raise AssertionError(f"splice_decode differs from the parent path on {name}")
+    copy = (drop >= k).reshape(-1)
+    if not _bits_equal(got[copy], plain[copy]):
+        raise AssertionError(f"splice_decode's copy rows differ from the plain version's on {name}")
+    err = (got.float() - plain.float()).abs().max().item() if got.numel() else 0.0
+    bound = _splice_err_bound(wide_vals, W, b, k, clean.dtype)
+    if not (bool(torch.isfinite(got).all()) and err <= bound):
+        raise AssertionError(f"splice_decode off its plain version by {err} (bound {bound}) on {name}")
+    hits = drop < k
+    line = {"features": drop.shape[0], "tokens": drop.shape[1], "hit_pairs": int(hits.sum()),
+            "hit_tokens": int(hits.any(0).sum()), "bit_equal_parent": True, "copy_rows_equal_plain": True,
+            "max_abs_err_plain": err, "err_bound": bound}
+    return line, lists
+
+
+def check_splice_decode(step, inside, outside, W, b) -> dict:
+    """K2's splice mode, each case against the parent path bit for bit and
+    against its plain version within a stated bound (`_check_splice_case`):
+    the attribution chunk of the 8 inside features (F = 8, the prompt's
+    2,432 tokens, W_dec 131,072 x 4,096 fp32, bf16 splice), the chunk of the
+    8 outside ones, F = 1, F = 32 on 256 tokens, a small k == width case
+    (fp32 splice) and a small bf16 decoder (bf16 and fp32 splices).  Both
+    chunks timed, median of 5, beside the parent path."""
+    import torch.nn.functional as F_
+
+    from multimodal_sae_tpu_torch.ops import gather_rows as gr
+
+    dev = W.device
+    k = step.k
+    clean = step.clean.reshape(-1, W.shape[1])
+    pool_vals = step.wide_vals.to(W.dtype)
+    cases = {"inside_F8": inside, "outside_F8": outside, "inside_F1": inside[:1]}
+    sub = 256  # F = 32 (the auto width under 512 tokens) on the first 256 tokens
+    cases["F32_on_256_tokens"] = step.wide_idx[sub - 1, :32].long().tolist()
+    checked, out = {}, {}
+    for name, feats in cases.items():
+        n = sub if name.startswith("F32") else clean.shape[0]
+        drop = step.drop_positions(torch.tensor(feats, device=dev))[:, :n]
+        args = (step.wide_idx[:n], pool_vals[:n], drop, k, W, b, clean[:n])
+        checked[name], lists = _check_splice_case(name, args)
+        if name in ("inside_F8", "outside_F8"):
+            out[name] = (args, lists)
+        del lists
+    gen = torch.Generator(device=dev).manual_seed(7)
+    small = {  # name: (N, width, k, kw, d, W dtype, splice dtype, features)
+        "k_equals_width": (64, 256, 256, 256, 512, torch.float32, torch.float32, 4),
+        "bf16_decoder": (300, 4096, 32, 33, 1024, torch.bfloat16, torch.bfloat16, 8),
+        "bf16_decoder_fp32_splice": (300, 4096, 32, 33, 1024, torch.bfloat16, torch.float32, 8),
+    }
+    for name, (n, width, k_, kw, d, wt, ct, F) in small.items():
+        W_, b_, idx, vals = _small_pool(gen, dev, n, width, kw, d, wt)
+        clean_ = (gr.gather_decode(idx[:, :k_], vals[:, :k_], W_) + b_).to(ct)
+        # Features at pool positions 0, k_ - 1, kw - 1 of some tokens, and 1 absent.
+        feats = [int(idx[0, 0]), int(idx[1, k_ - 1]), int(idx[2, kw - 1])]
+        in_pool = torch.zeros(width, dtype=torch.bool, device=dev)
+        in_pool[idx.long().reshape(-1)] = True
+        feats += torch.nonzero(~in_pool).reshape(-1)[:1].tolist()
+        feats = (feats * F)[:F]
+        drop = gr.drop_positions(idx, torch.tensor(feats, device=dev))
+        checked[name], _ = _check_splice_case(name, (idx, vals, drop, k_, W_, b_, clean_))
+        checked[name].update({"width": width, "k": k_, "k_wide": kw, "d": d,
+                              "W": str(wt).replace("torch.", ""), "splice": str(ct).replace("torch.", "")})
+    max_err = max(c["max_abs_err_plain"] for c in checked.values())
+    emit({"phase": "splice_decode_check", "cases": checked})
+
+    timed = {}
+    d = W.shape[1]
+    for name, (args, (vals, idx)) in out.items():
+        wide_idx, wide_vals, drop = args[:3]
+        feats_t = torch.tensor(cases[name], device=dev)
+        F, N = drop.shape
+        kernel = time_repeats(lambda: gr.splice_decode(*args))
+        parent_kernel = time_repeats(lambda: gr.gather_decode(idx, vals, W))
+        parent_path = time_repeats(lambda: (gr.gather_decode(*step.reselect(feats_t)[::-1], W) + b).to(clean.dtype))
+        new_path = time_repeats(lambda: gr.splice_decode(
+            wide_idx, wide_vals, step.drop_positions(feats_t), k, W, b, clean))
+        drop_ms = time_ms(lambda: step.drop_positions(feats_t))
+        plain_ms = time_ms(lambda: gr.splice_decode_plain(*args), iters=2, warmup=1)
+        library_ms = time_ms(lambda: F_.embedding_bag(idx.long(), W, per_sample_weights=vals, mode="sum"))
+        hits = drop < k
+        hit_pairs, hit_tokens = int(hits.sum()), hits.any(0)
+        distinct = torch.unique(wide_idx[hit_tokens]).numel() if bool(hit_tokens.any()) else 0
+        # The kernel reads a token's pool only where the token has a hit.
+        nbytes = (F * N * d * clean.element_size() + N * d * clean.element_size() + F * N * 4
+                  + int(hit_tokens.sum()) * wide_idx.shape[1] * (4 + W.element_size()) + d * W.element_size()
+                  + distinct * d * W.element_size())
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        fma_ms = hit_pairs * k * d / FP32_FMAS * 1e3
+        timed[name] = {
+            "features": F, "tokens": N, "hit_pairs": hit_pairs, "hit_tokens": int(hit_tokens.sum()),
+            "distinct_rows_of_hit_tokens": distinct,
+            "kernel_ms": kernel["median"], "kernel_ms_repeats": kernel,
+            "parent_kernel_ms": parent_kernel["median"], "parent_kernel_ms_repeats": parent_kernel,
+            "parent_path_ms": parent_path["median"], "new_path_ms": new_path["median"],
+            "drop_positions_ms": drop_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_bytes_ms": bytes_ms, "bound_fma_ms": fma_ms, "bound_ms": max(bytes_ms, fma_ms),
+            "bound_by": "operations" if fma_ms > bytes_ms else "bytes",
+        }
+    emit({"phase": "splice_decode", "W": [W.shape[0], d], "dtype": str(W.dtype).replace("torch.", ""),
+          "splice": str(clean.dtype).replace("torch.", ""), "max_abs_err_plain": max_err, "chunks": timed})
+    torch.cuda.empty_cache()
+    inside_line = timed["inside_F8"]
+    return {"ms": inside_line["kernel_ms"], "plain_ms": inside_line["plain_ms"],
+            "bound_ms": inside_line["bound_ms"], "bound_by": inside_line["bound_by"],
+            "library_ms": inside_line["library_ms"], "max_abs_err": max_err}
+
+
 STAGES = ("reselect", "decode", "forward", "backward", "saliency")
 
 
@@ -736,6 +912,7 @@ def time_stages(step, feats: torch.Tensor) -> dict:
 KERNEL_GROUPS = (
     ("flash_attention_bwd", ("dkdv_kernel", "dq_kernel", "delta_kernel")),
     ("flash_attention", ("flash_fwd_kernel",)),
+    ("splice_decode", ("splice_decode_kernel",)),
     ("gather_rows", ("gather_decode_kernel", "gather_rows_kernel")),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "cublas")),
 )
@@ -814,8 +991,9 @@ def phase_attribution_path(dev, card: str) -> dict:
     metric = partial(get_logit_diff, answer_token_indices=torch.tensor([[1000, 2000]], device=dev))
 
     # Outside the counted run: the prefix once, to choose the features and
-    # feed K2's check; one chunk as warm-up, then one timed stage by stage
-    # and one under the profiler.
+    # feed K2's checks; one chunk as warm-up, then one timed stage by stage
+    # and one under the profiler.  K2's checks (seconds of heavy card work)
+    # run after the counted run, so that they do not precede it.
     t0 = time.perf_counter()
     step = build_fast_attribution(model, hook, sae, batch, metric)
     k = sae.cfg.k
@@ -831,26 +1009,38 @@ def phase_attribution_path(dev, card: str) -> dict:
     seconds["prefix_and_warmup_chunk"] = time.perf_counter() - t0
     stage_ms = time_stages(step, chunk)
     profile = profile_chunk(step, chunk)
-    k2 = check_gather_rows(sae.params["W_dec"], step.wide_idx[:, :k], step.wide_vals[:, :k],
-                           step.reselect(torch.tensor(inside, device=dev)))
-    del step
     torch.cuda.empty_cache()
 
     torch.cuda.reset_peak_memory_stats()
+    gc.collect()
+    alloc_before = torch.cuda.memory_stats()
     reset_kernel_counts()
     t0 = time.perf_counter()
     out = fast_attribution_maps(model, hook, sae, batch, metric, feats, feature_batch=fb, progress=False)
     torch.cuda.synchronize()
     seconds["run"] = time.perf_counter() - t0
     launches = kernel_counts()
+    # The caching allocator's work inside the counted run: cudaMalloc calls
+    # (new segments), frees back to the driver, and retries after a failed
+    # cudaMalloc (which free cached blocks first).
+    alloc_after = torch.cuda.memory_stats()
+    alloc = {key: alloc_after.get(key, 0) - alloc_before.get(key, 0)
+             for key in ("num_device_alloc", "num_device_free", "num_alloc_retries", "segment.all.allocated",
+                         "segment.all.freed", "allocation.all.allocated")}
+    alloc["reserved_gb_before"] = alloc_before.get("reserved_bytes.all.current", 0) / 1e9
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    k2 = check_gather_rows(sae.params["W_dec"], step.wide_idx[:, :k], step.wide_vals[:, :k],
+                           step.reselect(torch.tensor(inside, device=dev)))
+    splice = check_splice_decode(step, inside, outside, sae.params["W_dec"], sae.params["b_dec"])
+    del step
+    torch.cuda.empty_cache()
     chunks = len(feats) // fb
     # Prefix: 25 forward attentions, the two block-max levels of the
-    # top-(k+1) pool, the clean decode; per chunk: one decode and the
+    # top-(k+1) pool, the clean decode; per chunk: one splice and the
     # suffix's 7 attentions forward and backward.
     expected = {"block_max": 2, "flash_attention": 25 + n_suffix * chunks,
                 "flash_attention_bwd_delta": n_suffix * chunks, "flash_attention_bwd_dkdv": n_suffix * chunks,
-                "flash_attention_bwd_dq": n_suffix * chunks, "gather_rows": 1 + chunks}
+                "flash_attention_bwd_dq": n_suffix * chunks, "gather_rows": 1, "splice_decode": chunks}
     if launches != expected:
         raise AssertionError(f"attribution kernel launches {launches}, expected {expected}")
     sal = _saliency(out, hook)  # (16, 1, S)
@@ -882,6 +1072,7 @@ def phase_attribution_path(dev, card: str) -> dict:
     step2 = build_fast_attribution(model, hook, sae, batch2, metric2)
     feats2 = step2.wide_idx[S2 - 1, :4].long().tolist() + step2.wide_idx[2 * S2 - 1, :4].long().tolist()
     del step2
+    gc.collect()
     reset_kernel_counts()
     t0 = time.perf_counter()
     out2 = fast_attribution_maps(model, hook, sae, batch2, metric2, feats2, feature_batch=fb, progress=False)
@@ -889,7 +1080,8 @@ def phase_attribution_path(dev, card: str) -> dict:
     seconds["masked_run"] = time.perf_counter() - t0
     launches2 = kernel_counts()
     expected2 = {"block_max": 2, "flash_attention": 25 + n_suffix, "flash_attention_bwd_delta": n_suffix,
-                 "flash_attention_bwd_dkdv": n_suffix, "flash_attention_bwd_dq": n_suffix, "gather_rows": 2}
+                 "flash_attention_bwd_dkdv": n_suffix, "flash_attention_bwd_dq": n_suffix, "gather_rows": 1,
+                 "splice_decode": 1}
     if launches2 != expected2:
         raise AssertionError(f"masked attribution kernel launches {launches2}, expected {expected2}")
     sal2 = _saliency(out2, hook)  # (8, 2, 512)
@@ -911,6 +1103,7 @@ def phase_attribution_path(dev, card: str) -> dict:
         "sae": "4096 -> 131072 latents, k=256, fp32, decoder", "hookpoint": hook, "prompt_tokens": S,
         "features": len(feats), "feature_batch": fb, "seconds": seconds,
         "ms_per_feature": seconds["run"] * 1e3 / len(feats), "features_per_s": len(feats) / seconds["run"],
+        "outside_chunks_ms": seconds["run"] * 1e3 - chunks * stage_ms["total"], "allocator": alloc,
         "chunk_stage_ms": stage_ms, "chunk_profile": profile, "launches": launches, "peak_gb": peak_gb,
         "outside_topk_exact_zero": True, "fast_vs_general_l2_rel": agreement[:2], "l2_rel_bound": ATTRIBUTION_L2_REL,
         "masked": {"prompts": 2, "tokens": S2, "left_pad_row1": pad, "features": len(feats2),
@@ -918,7 +1111,8 @@ def phase_attribution_path(dev, card: str) -> dict:
                    "fast_vs_general_l2_rel": agreement[2:]},
         "card": card,
     })
-    return {"launches": {name: launches[name] + launches2[name] for name in launches}, "k2": k2}
+    return {"launches": {name: launches[name] + launches2[name] for name in launches}, "k2": k2,
+            "splice": splice}
 
 
 def main() -> int:
@@ -936,7 +1130,7 @@ def main() -> int:
     attribution = phase_attribution_path(dev, card)
     runs = (cache["launches"], attribution["launches"])
     total = {name: sum(run[name] for run in runs) for name in runs[0]}
-    k2 = attribution["k2"]
+    k2, splice = attribution["k2"], attribution["splice"]
     bwd_launches = {part: total[f"flash_attention_bwd_{part}"] for part in ("delta", "dkdv", "dq")}
     kernels_line = {"kernels": [
         {"name": "block_max", "route": "cuda",
@@ -964,6 +1158,12 @@ def main() -> int:
          "launches": total["gather_rows"], "max_abs_err": k2["max_abs_err"],
          "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": k2["bound_by"], "library_ms": k2["library_ms"]},
+        {"name": "splice_decode", "route": "cuda",
+         "source": "multimodal_sae_tpu_torch/csrc/gather_rows.cu",
+         "replaces": "multimodal_sae_tpu/ops/pallas_gather.py:50",
+         "launches": total["splice_decode"], "max_abs_err": splice["max_abs_err"],
+         "ms": splice["ms"], "plain_ms": splice["plain_ms"], "bound_ms": splice["bound_ms"],
+         "bound_by": splice["bound_by"], "library_ms": splice["library_ms"]},
     ]}
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit(kernels_line)

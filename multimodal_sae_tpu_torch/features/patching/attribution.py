@@ -8,11 +8,12 @@ splice it with f ablated (corrupted), and accumulate
 * The fast path (one hookpoint, a model with `forward_from_layer`) splits
   the network at the splice: layers 0..hook, the (B·S, width)
   pre-activation matmul and a top-(k+1) pool run once; per feature only the
-  re-selection, the decode (kernel K2) and the layers above the hook run,
-  forward and backward (kernel K3 both ways).  The JAX package vmaps the
-  per-feature step; here a chunk of F features is stacked on the batch axis
-  (x is (F·B, S, D)), their metrics are summed, and one backward gives each
-  feature its own gradient.
+  dropped feature's pool positions, the splice (kernel K2's splice mode,
+  which reads each token's pool once for all F features of a chunk) and the
+  layers above the hook run, forward and backward (kernel K3 both ways).
+  The JAX package vmaps the per-feature step; here a chunk of F features is
+  stacked on the batch axis (x is (F·B, S, D)), their metrics are summed,
+  and one backward gives each feature its own gradient.
 * The general path (several hookpoints, or a model without
   `forward_from_layer`) runs the full spliced forward and backward once per
   feature.  The JAX package may vmap it; the results are the same.
@@ -31,6 +32,7 @@ import numpy as np
 import torch
 
 from ...device import DeviceLike, resolve_device, set_precision
+from ...ops.gather_rows import drop_positions, splice_decode, splice_lists
 from ...sae import Sae, decode, pre_acts, select_topk
 from .utils import get_logit_diff, spliced_forward_with_delta
 
@@ -72,19 +74,19 @@ class FastAttribution:
                 sae.params, self.wide_vals[:, : self.k], self.wide_idx[:, : self.k]
             ).reshape(self.B, self.S, D).to(h_raw.dtype)
 
+    def drop_positions(self, feats: torch.Tensor) -> torch.Tensor:
+        """(F, B·S) int32: feature feats[f]'s position in each token's pool,
+        k_wide where it is absent."""
+        return drop_positions(self.wide_idx, feats)
+
     def reselect(self, feats: torch.Tensor):
         """(vals, idx), each (F·B·S, k): every token's top-k with feature
-        feats[f] dropped, read in the pool's order."""
-        hit = self.wide_idx[None] == feats.to(self.wide_idx)[:, None, None]  # (F, N, k_wide)
-        pos = torch.where(hit.any(-1), hit.int().argmax(-1), self.k_wide)  # (F, N)
-        j = torch.arange(self.k, device=pos.device)
-        order = j + (j >= pos[..., None]).to(j.dtype)  # skip the dropped entry
-        past = order >= self.k_wide  # only when k == width and f was selected
-        order = order.clamp_max(self.k_wide - 1).reshape(-1, self.k)
-        N = self.wide_idx.shape[0]
-        rows = torch.arange(N, device=pos.device).repeat(feats.shape[0])[:, None]
-        vals = self.wide_vals[rows, order].masked_fill(past.reshape(-1, self.k), 0.0)
-        return vals, self.wide_idx[rows, order]
+        feats[f] dropped, read in the pool's order.  The splice reads the
+        same lists from the pool itself (`splice_decode`); this spells them
+        out, for comparison."""
+        pos = self.drop_positions(feats)  # (F, N)
+        rows = torch.arange(self.wide_idx.shape[0], device=pos.device).repeat(feats.shape[0])
+        return splice_lists(self.wide_idx, self.wide_vals, rows, pos.reshape(-1), self.k)
 
     def __call__(self, feats: torch.Tensor, mark: Optional[Callable[[str], None]] = None) -> torch.Tensor:
         """(F, B, S) saliency of features `feats` (F,).  `mark(stage)` is
@@ -92,10 +94,14 @@ class FastAttribution:
         "backward", "saliency"); a caller may time the stages with it."""
         mark = mark or (lambda stage: None)
         F, B, S = feats.shape[0], self.B, self.S
+        params = self.sae.params
         with torch.no_grad():
-            vals, idx = self.reselect(feats)
+            drop = self.drop_positions(feats)
             mark("reselect")
-            spliced = decode(self.sae.params, vals, idx).reshape(F * B, S, -1).to(self.clean.dtype)
+            spliced = splice_decode(
+                self.wide_idx, self.wide_vals.to(params["W_dec"].dtype), drop, self.k, params["W_dec"],
+                params["b_dec"], self.clean.reshape(B * S, -1),
+            ).reshape(F * B, S, -1)
             mark("decode")
         delta = torch.zeros(spliced.shape, dtype=torch.float32, device=spliced.device, requires_grad=True)
         x = spliced + delta.to(spliced.dtype)
