@@ -58,7 +58,25 @@ Phases; any failure raises and ends the run with a non-zero exit code:
    with exact zeros at the pad positions and the fast path against the
    general path for 2 features; one chunk is timed stage by stage
    (CUDA events) and once under torch.profiler;
-8. a `kernels` JSON line, the card line, and the result line.
+8. train_path: `SaeTrainer` at the README's command shape (131,072
+   latents, k = 256, fp32, batch 8 x 2,048, grad_acc_steps 4,
+   micro_acc_steps TRAIN_MICRO, lr_warmup_steps 0) on the 25-layer random
+   LLaMA-3-8B-width subject (bf16, flash attention, layers.24), reading a
+   uint32 `MemmapDataset`: eight batches (two optimizer steps, b_dec from
+   the geometric median), `save` and `load_state` into a fresh trainer
+   (parameters, moments, counters equal bit for bit), one batch on the
+   resumed trainer and one with AuxK (half the latents made dead,
+   micro_acc_steps AUXK_MICRO); checks finite losses, unit decoder rows
+   after `accumulate`, the projected gradient orthogonal to the rows, the
+   counters against the window's fired mask and K1's launches; times
+   tokens/s, one batch's stages (CUDA events) and the peak memory; then
+   the card's `accumulate` against the CPU's (d 4,096, 16,384 latents,
+   1,024 tokens on an exact grid: equal masks, gradients within
+   TRAIN_CPU_L2_REL), `forward(fast=False)` and its backward against the
+   fast path at full width on 4,096 tokens (a counted run: K1, K2's decode
+   and dvals modes), and K2's dvals mode against its plain version (equal
+   bits twice, timed beside its bound);
+9. a `kernels` JSON line, the card line, and the result line.
 
 Needs one CUDA card; exits non-zero without one.  Imports nothing of JAX.
 """
@@ -109,6 +127,29 @@ K3_BWD_ZERO = 1e-3
 # orders, and dq and dk are that rounding (under 1e-4) times k or qs; the
 # plain version's are rounding too, so a relative bound would compare noise
 # with noise.  Every other gradient here has max |plain| > 1.
+TRAIN_MICRO = 1
+AUXK_MICRO = 1
+# micro_acc_steps of the training batches and of the AuxK batch: the least
+# that fits (train_memory.py on an NVIDIA H100 80GB HBM3 at 700 W: peak
+# 61.3 GB at 1 and 46.9 GB at 2 without AuxK, 72.5 GB at 1 with it).
+UNIT_NORM_TOL = 1e-5
+# Decoder rows after `accumulate`'s renorm: max |‖row‖ - 1| <= 1e-5 (each
+# row is divided by its fp32 norm + eps, a few ulps from 1).
+ORTHO_REL = 5e-4
+# The projected decoder gradient g' against the unit rows w:
+# max |g'_l . w_l| <= 5e-4 * max ‖g'_l‖.  Both the projection's dot and
+# this one are fp32 sums of d = 4,096 products, each within d * 2^-24 =
+# 2.4e-4 relative of exact.
+TRAIN_CPU_L2_REL = 1e-4
+# The card's `accumulate` against the CPU's on one chunk: every gradient
+# within relative L2 1e-4 (fp32 matmuls and reductions summed in other
+# orders; the renormalised decoders differ by ulps).  The inputs lie on a
+# grid on which the encoder's products and sums are exact, so both sides'
+# pre-activations, and with them every selection mask, are equal bit for bit.
+FAST_SLOW_REL = 1e-4
+# forward(fast=False) against the fast path on one full-width chunk: fvu
+# within 1e-4 relative and each gradient within relative L2 1e-4 (the same
+# selection, decoded and differentiated by other fp32 sums).
 ATTRIBUTION_L2_REL = 1e-3
 # Fast against general attribution, ||fast - general|| <= 1e-3 * ||general||
 # per feature: the two select the same top-k in the same order, decode it
@@ -163,6 +204,7 @@ def _counted_modules():
         "flash_attention_bwd_dq": (flash_attention, "bwd_dq_launches"),
         "gather_rows": (gather_rows, "launches"),
         "splice_decode": (gather_rows, "splice_launches"),
+        "decode_dvals": (gather_rows, "dvals_launches"),
     }
 
 
@@ -592,7 +634,7 @@ def phase_cache_path(dev, card: str) -> dict:
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         expected = {"block_max": 2 * n_batches, "flash_attention": 25 * n_batches,
                     "flash_attention_bwd_delta": 0, "flash_attention_bwd_dkdv": 0,
-                    "flash_attention_bwd_dq": 0, "gather_rows": 0, "splice_decode": 0}
+                    "flash_attention_bwd_dq": 0, "gather_rows": 0, "splice_decode": 0, "decode_dvals": 0}
         if launches != expected:
             raise AssertionError(f"kernel launches {launches} over {n_batches} batches, expected {expected}")
         t0 = time.perf_counter()
@@ -727,6 +769,9 @@ def check_gather_rows(W: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor, ch
 
 
 def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    a, b = a.detach(), b.detach()
+    if not a.is_floating_point():
+        return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
     ib = torch.int32 if a.dtype == torch.float32 else torch.int16
     return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.view(ib), b.view(ib))
 
@@ -1040,7 +1085,8 @@ def phase_attribution_path(dev, card: str) -> dict:
     # suffix's 7 attentions forward and backward.
     expected = {"block_max": 2, "flash_attention": 25 + n_suffix * chunks,
                 "flash_attention_bwd_delta": n_suffix * chunks, "flash_attention_bwd_dkdv": n_suffix * chunks,
-                "flash_attention_bwd_dq": n_suffix * chunks, "gather_rows": 1, "splice_decode": chunks}
+                "flash_attention_bwd_dq": n_suffix * chunks, "gather_rows": 1, "splice_decode": chunks,
+                "decode_dvals": 0}
     if launches != expected:
         raise AssertionError(f"attribution kernel launches {launches}, expected {expected}")
     sal = _saliency(out, hook)  # (16, 1, S)
@@ -1081,7 +1127,7 @@ def phase_attribution_path(dev, card: str) -> dict:
     launches2 = kernel_counts()
     expected2 = {"block_max": 2, "flash_attention": 25 + n_suffix, "flash_attention_bwd_delta": n_suffix,
                  "flash_attention_bwd_dkdv": n_suffix, "flash_attention_bwd_dq": n_suffix, "gather_rows": 1,
-                 "splice_decode": 1}
+                 "splice_decode": 1, "decode_dvals": 0}
     if launches2 != expected2:
         raise AssertionError(f"masked attribution kernel launches {launches2}, expected {expected2}")
     sal2 = _saliency(out2, hook)  # (8, 2, 512)
@@ -1115,6 +1161,339 @@ def phase_attribution_path(dev, card: str) -> dict:
             "splice": splice}
 
 
+TRAIN_STAGES = ("capture", "encode", "top_k", "masked_decode", "losses", "backward", "clip", "apply", "bookkeeping")
+
+
+class StageMarks:
+    """CUDA events at the trainer's stage marks; `ms()` sums the time of
+    each stage (from the previous mark to its own) over one batch."""
+
+    def __init__(self):
+        self.events = [("start", torch.cuda.Event(enable_timing=True))]
+        self.events[0][1].record()
+        self.on_apply = None
+
+    def __call__(self, stage: str):
+        if stage == "apply" and self.on_apply is not None:
+            self.on_apply()
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        self.events.append((stage, event))
+
+    def ms(self) -> dict:
+        torch.cuda.synchronize()
+        out = {}
+        for (_, a), (stage, b) in zip(self.events, self.events[1:]):
+            out[stage] = out.get(stage, 0.0) + a.elapsed_time(b)
+        out["total"] = self.events[0][1].elapsed_time(self.events[-1][1])
+        return out
+
+
+def _trainer_state_equal(a, b, hook: str) -> bool:
+    """Parameters, optimizer leaves and counters of two trainers equal bit
+    for bit."""
+    from multimodal_sae_tpu_torch.ops.adam import flatten_state
+
+    pa, pb = a.saes[hook].params, b.saes[hook].params
+    if set(pa) != set(pb) or not all(_bits_equal(pa[n], pb[n]) for n in pa):
+        return False
+    la, lb = flatten_state(a.opt_states[hook]), flatten_state(b.opt_states[hook])
+    if len(la) != len(lb) or not all(_bits_equal(x, y) for x, y in zip(la, lb)):
+        return False
+    return (np.array_equal(a.num_tokens_since_fired[hook], b.num_tokens_since_fired[hook])
+            and (a.global_step, a.opt_step) == (b.global_step, b.opt_step))
+
+
+def _l2_rel(got: torch.Tensor, ref: torch.Tensor) -> float:
+    got, ref = got.detach().float().cpu(), ref.detach().float().cpu()
+    return ((got - ref).norm() / ref.norm()).item()
+
+
+def check_accumulate_cpu(chunk: torch.Tensor, dev) -> dict:
+    """The card's `accumulate` against the CPU's on one chunk (1,024 tokens
+    of the subject's hidden states) at d 4,096 and 16,384 latents, k 256,
+    AuxK on with every other latent dead.  Parameters and chunk lie on a
+    grid (W_enc multiples of 2^-7 up to 2^-4, biases and inputs multiples
+    of 2^-4 and 2^-11, inputs clamped to [-8, 8]) on which every product
+    and partial sum of the encoder is exact in fp32, so the two devices'
+    pre-activations agree bit for bit and the masks must be equal."""
+    from multimodal_sae_tpu_torch.config import SaeConfig, TrainConfig
+    from multimodal_sae_tpu_torch.ops.sparse_decode import topk_mask_decode
+    from multimodal_sae_tpu_torch.sae import pre_acts
+    from multimodal_sae_tpu_torch.train.trainer import accumulate
+
+    d, L, k = chunk.shape[1], 16384, 256
+    rng = np.random.default_rng(3)
+    W_enc = rng.integers(-8, 9, size=(d, L)).astype(np.float32) / 2**7
+    W_dec = rng.standard_normal((L, d)).astype(np.float32)
+    host = {"W_enc": W_enc, "b_enc": rng.integers(-8, 9, size=L).astype(np.float32) / 2**11,
+            "W_dec": W_dec, "b_dec": rng.integers(-4, 5, size=d).astype(np.float32) / 2**4}
+    x = (chunk.float() * 16).round().clamp(-128, 128).cpu() / 16
+    cfg = TrainConfig(sae=SaeConfig(num_latents=L, k=k), auxk_alpha=1 / 32)
+    dead = torch.zeros(L, dtype=torch.bool)
+    dead[::2] = True
+    out = {}
+    for where in ("cuda", "cpu"):
+        device = dev if where == "cuda" else torch.device("cpu")
+        params = {n: torch.from_numpy(a.copy()).to(device).requires_grad_(True) for n, a in host.items()}
+        t0 = time.perf_counter()
+        fired, sums = accumulate(params, x.to(device), dead.to(device), cfg)
+        mask = topk_mask_decode(pre_acts(params, x.to(device)).detach(), params["W_dec"].detach(), k)[2]
+        if where == "cuda":
+            torch.cuda.synchronize()
+        out[where] = {"fired": fired.cpu(), "mask": mask.cpu(), "sums": {n: v.item() for n, v in sums.items()},
+                      "grads": {n: p.grad.cpu() for n, p in params.items()}, "s": time.perf_counter() - t0}
+        del params, fired, mask
+    gpu, cpu = out["cuda"], out["cpu"]
+    if not (torch.equal(gpu["mask"], cpu["mask"]) and torch.equal(gpu["fired"], cpu["fired"])):
+        raise AssertionError("the card's selection or fired mask differs from the CPU's")
+    rel = {n: _l2_rel(gpu["grads"][n], cpu["grads"][n]) for n in host}
+    if not all(r <= TRAIN_CPU_L2_REL for r in rel.values()):
+        raise AssertionError(f"the card's accumulate differs from the CPU's: relative L2 {rel}")
+    line = {"tokens": x.shape[0], "d": d, "latents": L, "k": k, "masks_equal": True,
+            "selected": int(gpu["mask"].sum()), "fired": int(gpu["fired"].sum()), "grad_l2_rel": rel,
+            "l2_rel_bound": TRAIN_CPU_L2_REL, "sums_card": gpu["sums"], "sums_cpu": cpu["sums"],
+            "seconds_card": gpu["s"], "seconds_cpu": cpu["s"]}
+    torch.cuda.empty_cache()
+    return line
+
+
+def check_fast_vs_slow(params: dict, x: torch.Tensor, cfg) -> tuple:
+    """`forward(fast=False)` (select_topk, then the sparse decode with its
+    backward: K2's decode and dvals modes) against the fast path on one
+    chunk at full width: fvu and each gradient, and each path's forward and
+    backward timed once by CUDA events (the first calls at this shape).
+    The slow run is counted.  Returns (line, launches, the slow path's
+    top-k indices)."""
+    from multimodal_sae_tpu_torch.sae import forward
+
+    grads, fvu, ms = {}, {}, {}
+    for fast in (True, False):
+        p = {n: t.detach().clone().requires_grad_(True) for n, t in params.items()}
+        gc.collect()
+        if not fast:
+            reset_kernel_counts()
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        events[0].record()
+        out = forward(p, x, cfg.sae, fast=fast)
+        events[1].record()
+        out.fvu.backward()
+        events[2].record()
+        torch.cuda.synchronize()
+        ms["fast" if fast else "slow"] = {"forward": events[0].elapsed_time(events[1]),
+                                          "backward": events[1].elapsed_time(events[2])}
+        if not fast:
+            launches = kernel_counts()
+            idx = out.latent_indices
+        fvu[fast] = out.fvu.item()
+        grads[fast] = {n: t.grad for n, t in p.items()}
+        del p, out
+    expected = {"block_max": 2, "flash_attention": 0, "flash_attention_bwd_delta": 0, "flash_attention_bwd_dkdv": 0,
+                "flash_attention_bwd_dq": 0, "gather_rows": 1, "splice_decode": 0, "decode_dvals": 1}
+    if launches != expected:
+        raise AssertionError(f"forward(fast=False) kernel launches {launches}, expected {expected}")
+    rel = {n: _l2_rel(grads[False][n], grads[True][n]) for n in params}
+    fvu_rel = abs(fvu[False] - fvu[True]) / fvu[True]
+    if not (np.isfinite(fvu[False]) and fvu_rel <= FAST_SLOW_REL and all(r <= FAST_SLOW_REL for r in rel.values())):
+        raise AssertionError(f"forward(fast=False) differs from the fast path: fvu {fvu}, gradients {rel}")
+    del grads
+    torch.cuda.empty_cache()
+    return ({"tokens": x.shape[0], "fvu_fast": fvu[True], "fvu_slow": fvu[False], "fvu_rel": fvu_rel,
+             "grad_l2_rel": rel, "bound": FAST_SLOW_REL, "ms": ms, "launches": launches}, launches, idx)
+
+
+def check_decode_dvals(W: torch.Tensor, idx: torch.Tensor) -> dict:
+    """K2's dvals mode at (tokens, k) = idx's shape on the decoder W, with a
+    seeded g: within an fp32 bound of its plain version, equal bits over two
+    calls, timed (median of 5) beside its bound and the plain version."""
+    from multimodal_sae_tpu_torch.ops import gather_rows as gr
+
+    N, k = idx.shape
+    d = W.shape[1]
+    g = torch.randn(N, d, generator=torch.Generator(device=W.device).manual_seed(4), device=W.device)
+    got = gr.decode_dvals(g, idx, W, torch.float32)
+    again = gr.decode_dvals(g, idx, W, torch.float32)
+    ref = gr.decode_dvals_plain(g, idx, W, torch.float32)
+    torch.cuda.synchronize()
+    # Each side sums d fp32 products in its own order: each differs from the
+    # exact sum by at most d * 2^-24 * sum_d |g[n, d] * W[r, d]|.
+    err_bound = 2 * d * 2.0 ** -24 * g.abs().sum(-1).max().item() * W.abs().max().item()
+    err = (got - ref).abs().max().item()
+    if not (torch.isfinite(got).all() and err <= err_bound):
+        raise AssertionError(f"decode_dvals off by {err} (bound {err_bound})")
+    if not _bits_equal(got, again):
+        raise AssertionError("decode_dvals is not deterministic")
+    distinct = torch.unique(idx).numel()
+    nbytes = distinct * d * W.element_size() + N * d * 4 + N * k * 8
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    fma_ms = N * k * d / FP32_FMAS * 1e3
+    repeats = time_repeats(lambda: gr.decode_dvals(g, idx, W, torch.float32))
+    line = {"tokens": N, "k": k, "W": [W.shape[0], d], "distinct_rows": distinct, "max_abs_err": err,
+            "err_bound": err_bound, "deterministic": True, "kernel_ms": repeats["median"],
+            "kernel_ms_repeats": repeats, "plain_ms": time_ms(lambda: gr.decode_dvals_plain(g, idx, W, torch.float32), iters=3),
+            "bound_ms": max(bytes_ms, fma_ms), "bound_bytes_ms": bytes_ms, "bound_fma_ms": fma_ms,
+            "bound_by": "bytes" if bytes_ms >= fma_ms else "operations", "no_reuse_gb": N * k * d * W.element_size() / 1e9}
+    del g, got, again, ref
+    torch.cuda.empty_cache()
+    return line
+
+
+def phase_train_path(dev, card: str) -> dict:
+    """SAE training at the README's command shape on the LLaMA-3-8B-width
+    subject (random bf16 weights, 25 layers, hookpoint layers.24), through
+    `SaeTrainer`'s `step`, `save` and `load_state`."""
+    from collections import defaultdict
+
+    from multimodal_sae_tpu_torch.config import SaeConfig, TrainConfig
+    from multimodal_sae_tpu_torch.device import setup
+    from multimodal_sae_tpu_torch.models.llama import LlamaConfig, LlamaModel
+    from multimodal_sae_tpu_torch.train import MemmapDataset, SaeTrainer
+    from multimodal_sae_tpu_torch.train.trainer import _iter_batches
+
+    setup(dev)
+    hook, B, S, L, k, acc = "layers.24", 8, 2048, 131072, 256, 4
+    n_batches = 10  # 8, then one resumed, then one with AuxK
+    seconds = {}
+    t0 = time.perf_counter()
+    cfg_subject = LlamaConfig(num_hidden_layers=25, flash_attention=True)
+    model = LlamaModel.random(cfg_subject, seed=0, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    seconds["init_subject"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        # LLaMA-3's ids need more than the reference's uint16 tokens.
+        ids = np.random.default_rng(2).integers(0, cfg_subject.vocab_size, size=(n_batches * B, S), dtype=np.uint32)
+        ids.tofile(os.path.join(tmp, "tokens.bin"))
+        dataset = MemmapDataset(os.path.join(tmp, "tokens.bin"), S, dtype=np.uint32)
+        batches = list(_iter_batches(dataset, B))
+
+        def config():
+            return TrainConfig(sae=SaeConfig(num_latents=L, k=k), batch_size=B, grad_acc_steps=acc,
+                               micro_acc_steps=TRAIN_MICRO, lr_warmup_steps=0, log_to_wandb=False,
+                               hookpoints=[hook], save_every=10**9, run_name=os.path.join(tmp, "run"))
+
+        t0 = time.perf_counter()
+        trainer = SaeTrainer(config(), dataset, model, device=dev)
+        torch.cuda.synchronize()
+        seconds["init_trainer"] = time.perf_counter() - t0
+        metrics = {hook: defaultdict(float)}
+        losses = []
+
+        def step(tr, batch, mark=None):
+            tr.step(batch, metrics, mark=mark)
+            losses.append({key: val * tr.cfg.grad_acc_steps for key, val in metrics[hook].items()})
+            metrics[hook].clear()
+
+        # The projected gradient the optimizer is handed at the first
+        # boundary, against the decoder rows.
+        ortho = {}
+        update = trainer.optimizer.update
+
+        def spy(grads, state):
+            W, g = trainer.saes[hook].W_dec.detach(), grads["W_dec"]
+            ortho["max_dot"] = torch.einsum("ld,ld->l", g, W).abs().max().item()
+            ortho["max_row_norm"] = torch.linalg.vector_norm(g, dim=1).max().item()
+            return update(grads, state)
+
+        torch.cuda.reset_peak_memory_stats()
+        gc.collect()
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        for i, batch in enumerate(batches[:8]):
+            if i == 2:
+                torch.cuda.synchronize()
+                t_steady = time.perf_counter()
+            trainer.optimizer.update = spy if i == 3 else update
+            if i == 6:
+                step(trainer, batch)  # not a boundary: the decoder as `accumulate` stored it
+                W = trainer.saes[hook].W_dec.detach()
+                unit_err = (torch.linalg.vector_norm(W, dim=1) - 1).abs().max().item()
+            elif i == 7:
+                marks = StageMarks()
+                window = {}
+                marks.on_apply = lambda: window.update(fired=trainer._fired_dev[hook].clone())
+                step(trainer, batch, mark=marks)
+            else:
+                step(trainer, batch)
+        torch.cuda.synchronize()
+        seconds["eight_batches"] = time.perf_counter() - t0
+        steady_s = time.perf_counter() - t_steady
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        stage_ms = marks.ms()
+        trainer.optimizer.update = update
+        if not unit_err <= UNIT_NORM_TOL:
+            raise AssertionError(f"decoder rows after accumulate off unit norm by {unit_err}")
+        if not ortho["max_dot"] <= ORTHO_REL * ortho["max_row_norm"]:
+            raise AssertionError(f"projected decoder gradient not orthogonal to the rows: {ortho}")
+        counts = trainer.num_tokens_since_fired[hook]
+        fired = window["fired"].cpu().numpy()
+        if not (np.array_equal(counts == 0, fired) and set(np.unique(counts)) <= {0, acc * B * S, 2 * acc * B * S}
+                and torch.equal(trainer._dead_mask_dev[hook].cpu(), torch.from_numpy(counts > trainer.cfg.dead_feature_threshold))):
+            raise AssertionError("dead-feature counters disagree with the window's fired mask")
+
+        t0 = time.perf_counter()
+        trainer.save()
+        seconds["save"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        resumed = SaeTrainer(config(), dataset, model, device=dev)
+        resumed.load_state(os.path.join(tmp, "run"))
+        torch.cuda.synchronize()
+        seconds["init_and_load_state"] = time.perf_counter() - t0
+        if not _trainer_state_equal(trainer, resumed, hook):
+            raise AssertionError("the resumed trainer's state differs from the saved one")
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        step(resumed, batches[8])
+        # AuxK: half the latents dead (65,536 against k_aux = 2,048: scale 1).
+        resumed.cfg.auxk_alpha = 1 / 32
+        resumed.cfg.micro_acc_steps = AUXK_MICRO
+        resumed.num_tokens_since_fired[hook][::2] = resumed.cfg.dead_feature_threshold + 1
+        resumed._refresh_dead_mask(hook)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        step(resumed, batches[9])
+        torch.cuda.synchronize()
+        seconds["auxk_batch"] = time.perf_counter() - t0
+        auxk_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        launches = kernel_counts()
+        expected = {"block_max": 2 * (9 * TRAIN_MICRO + AUXK_MICRO), "flash_attention": 25 * n_batches,
+                    "flash_attention_bwd_delta": 0, "flash_attention_bwd_dkdv": 0, "flash_attention_bwd_dq": 0,
+                    "gather_rows": 0, "splice_decode": 0, "decode_dvals": 0}
+        if launches != expected:
+            raise AssertionError(f"training kernel launches {launches}, expected {expected}")
+        if not all(np.isfinite(v) for line in losses for v in line.values()):
+            raise AssertionError(f"non-finite training loss: {losses}")
+        if not losses[-1]["auxk"] > 0:
+            raise AssertionError(f"AuxK loss {losses[-1]['auxk']} with half the latents dead")
+
+        # Cross-checks on one captured batch.
+        with torch.no_grad():
+            h = model.capture(batches[0], [hook])[hook].reshape(-1, cfg_subject.hidden_size)
+        t0 = time.perf_counter()
+        cpu_line = check_accumulate_cpu(h[:1024], dev)
+        seconds["cpu_cross_check"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        slow_line, slow_launches, idx = check_fast_vs_slow(resumed.saes[hook].params, h[:4096], resumed.cfg)
+        seconds["fast_vs_slow"] = time.perf_counter() - t0
+        dvals = check_decode_dvals(resumed.saes[hook].W_dec.detach(), idx)
+        del resumed, h, idx
+    torch.cuda.empty_cache()
+
+    tokens_steady = 6 * B * S
+    emit({
+        "phase": "train_path", "subject": "LLaMA-3-8B widths, 25 layers, bf16, flash attention",
+        "sae": "4096 -> 131072 latents, k=256, fp32", "hookpoint": hook, "batch_size": B, "ctx_len": S,
+        "grad_acc_steps": acc, "micro_acc_steps": TRAIN_MICRO, "auxk_micro_acc_steps": AUXK_MICRO,
+        "tokens_per_s": tokens_steady / steady_s, "tokens_per_s_over": "batches 3-8", "seconds": seconds,
+        "stage_ms_batch8": stage_ms, "peak_gb": peak_gb, "auxk_peak_gb": auxk_peak_gb,
+        "losses": losses, "decoder_unit_norm_err": unit_err, "unit_norm_tol": UNIT_NORM_TOL,
+        "projected_grad": ortho, "ortho_rel": ORTHO_REL, "launches": launches,
+        "cpu_cross_check": cpu_line, "fast_vs_slow": slow_line, "decode_dvals": dvals, "card": card,
+    })
+    return {"launches": {name: launches[name] + slow_launches[name] for name in launches}, "dvals": dvals}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card", file=sys.stderr)
@@ -1128,9 +1507,12 @@ def main() -> int:
     cache = phase_cache_path(dev, card)
     torch.cuda.empty_cache()
     attribution = phase_attribution_path(dev, card)
-    runs = (cache["launches"], attribution["launches"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = phase_train_path(dev, card)
+    runs = (cache["launches"], attribution["launches"], train["launches"])
     total = {name: sum(run[name] for run in runs) for name in runs[0]}
-    k2, splice = attribution["k2"], attribution["splice"]
+    k2, splice, dvals = attribution["k2"], attribution["splice"], train["dvals"]
     bwd_launches = {part: total[f"flash_attention_bwd_{part}"] for part in ("delta", "dkdv", "dq")}
     kernels_line = {"kernels": [
         {"name": "block_max", "route": "cuda",
@@ -1164,6 +1546,12 @@ def main() -> int:
          "launches": total["splice_decode"], "max_abs_err": splice["max_abs_err"],
          "ms": splice["ms"], "plain_ms": splice["plain_ms"], "bound_ms": splice["bound_ms"],
          "bound_by": splice["bound_by"], "library_ms": splice["library_ms"]},
+        {"name": "decode_dvals", "route": "cuda",
+         "source": "multimodal_sae_tpu_torch/csrc/gather_rows.cu",
+         "replaces": "multimodal_sae_tpu/ops/sparse_decode.py:132",
+         "launches": total["decode_dvals"], "max_abs_err": dvals["max_abs_err"],
+         "ms": dvals["kernel_ms"], "plain_ms": dvals["plain_ms"], "bound_ms": dvals["bound_ms"],
+         "bound_by": dvals["bound_by"], "library_ms": None},
     ]}
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit(kernels_line)

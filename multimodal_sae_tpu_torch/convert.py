@@ -5,17 +5,21 @@ as an ml_dtypes array).  LLaMA: the JAX package stores projections as
 (in, out) for `x @ W` and may stack its layers for `lax.scan`; the port keeps
 PyTorch's (out, in) for `F.linear` and a list of per-layer dicts.  SAE: both
 packages hold `W_enc (d_in, L)`, `b_enc`, `W_dec (L, d_in)`, `b_dec`, so only
-the array type changes.
+the array type changes.  Optimizer state: the JAX trainer saves its optax
+state as `leaf_{i}` arrays in `jax.tree_util.tree_flatten` order; the port's
+states (ops/adam.py `AdamState`, ops/adam8bit.py `ScaleByAdam8bitState`)
+flatten in the same order, so the arrays cross one for one.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, NamedTuple
 
 import numpy as np
 import torch
 
 from .device import DeviceLike, resolve_device
+from .ops.adam import flatten_state, unflatten_state
 
 PROJECTIONS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
 """Per-layer matrices stored (in, out) by the JAX package, (out, in) here;
@@ -93,3 +97,18 @@ def llama_params_to_jax(params: Mapping) -> dict:
     if "lm_head" in params:
         out["lm_head"] = np.ascontiguousarray(tensor_to_numpy(params["lm_head"]).T)
     return out
+
+
+def opt_state_from_jax(flat: Mapping[str, np.ndarray], like: NamedTuple) -> NamedTuple:
+    """The JAX trainer's optimizer arrays `{"leaf_i": array}` (its
+    `_flatten_opt_state`, or its `optimizer_*.safetensors`) -> a port state
+    shaped like `like` (an `AdamState` or `ScaleByAdam8bitState` from the
+    optimizer's `init`), on `like`'s device."""
+    n = len(flatten_state(like))
+    return unflatten_state([tensor_from_numpy(flat[f"leaf_{i}"], "cpu") for i in range(n)], like)
+
+
+def opt_state_to_jax(state: NamedTuple) -> Dict[str, np.ndarray]:
+    """A port optimizer state -> `{"leaf_i": numpy array}` in the JAX
+    trainer's leaf order (its `_unflatten_opt_state` reads them)."""
+    return {f"leaf_{i}": tensor_to_numpy(t) for i, t in enumerate(flatten_state(state))}

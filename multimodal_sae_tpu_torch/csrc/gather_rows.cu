@@ -1,8 +1,10 @@
-// Row gather of a (L, d) matrix, in three modes:
+// Row gather of a (L, d) matrix, in four modes:
 //   gather_rows:   out[m] = W[idx[m]]                        (any element type)
 //   gather_decode: y[n]   = sum_j vals[n, j] * W[idx[n, j]]  (fp32 or bf16 W)
 //   splice_decode: an attribution chunk's F corrupted SAE splices, read from
 //                  one top-(k+1) pool per token (below)
+//   decode_dvals:  dvals[n, j] = g[n] . W[idx[n, j]]         (the decode's
+//                  backward for its values, below)
 //
 // Replaces the Pallas TPU kernel multimodal_sae_tpu/ops/pallas_gather.py::
 // pallas_gather_rows (body _gather_kernel), whose contract is the first mode.
@@ -58,6 +60,22 @@
 // at half the rate.  The bias, the roundings and the cast run in the
 // epilogue, so the output is written once in O.  No atomics: equal inputs
 // give equal bits.
+//
+// decode_dvals.  The backward of the SAE decode for its values
+// (multimodal_sae_tpu/ops/sparse_decode.py::_sparse_decode_bwd, dvals as an
+// einsum over the gathered rows): dvals[n, j] = sum_d g[n, d] * W[idx[n, j],
+// d], g fp32, W fp32 or bf16, summed in fp32, written in O (the dtype of the
+// decode's values).  An index outside [0, L) gives 0.
+// Bound on an H100: the larger of the bytes (each distinct row of W that idx
+// names, g, idx and the output, over 3.35 TB/s) and the FMAs (N * k * d in
+// fp32 over 33.5 T FMA/s).
+// Design, kept simple: one block of 256 threads (8 warps) per token holds
+// g[n] in shared memory; each warp takes four of the token's rows at a time
+// (rows j0 .. j0 + 3, then 32 rows on), its lanes reading 16-byte vectors of
+// them through the read-only path as the splice does, all four rows in
+// flight while the FMAs run; each lane sums its vectors in column order and
+// the warp adds its lanes with a fixed butterfly of shuffles.  No atomics:
+// equal inputs give equal bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -97,6 +115,15 @@ struct Vec<float> {
     for (int i = 0; i < N; ++i) acc[i] = fmaf(s, f[i], acc[i]);
   }
   __device__ static float load(const float* p) { return *p; }
+  // acc + sum_i g[i] * u[i], in order i = 0 .. N-1; g 16-byte aligned.
+  __device__ static float dot(float acc, const float* g, const uint4& u) {
+    const float4 gv = *reinterpret_cast<const float4*>(g);
+    const float* f = reinterpret_cast<const float*>(&u);
+    acc = fmaf(gv.x, f[0], acc);
+    acc = fmaf(gv.y, f[1], acc);
+    acc = fmaf(gv.z, f[2], acc);
+    return fmaf(gv.w, f[3], acc);
+  }
   __device__ static uint4 pack(const float* acc) {
     uint4 u;
     float* f = reinterpret_cast<float*>(&u);
@@ -119,6 +146,20 @@ struct Vec<__nv_bfloat16> {
     }
   }
   __device__ static float load(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+  __device__ static float dot(float acc, const float* g, const uint4& u) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const float4 gv = reinterpret_cast<const float4*>(g)[half];
+      const float2 a = __bfloat1622float2(h[2 * half]);
+      const float2 b = __bfloat1622float2(h[2 * half + 1]);
+      acc = fmaf(gv.x, a.x, acc);
+      acc = fmaf(gv.y, a.y, acc);
+      acc = fmaf(gv.z, b.x, acc);
+      acc = fmaf(gv.w, b.y, acc);
+    }
+    return acc;
+  }
   __device__ static uint4 pack(const float* acc) {
     uint4 u;
     __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
@@ -350,6 +391,72 @@ int launch_splice(const void* w, const void* pool_idx, const void* pool_vals, co
   return (int)cudaGetLastError();
 }
 
+// decode_dvals: one block of DV_THREADS per token.
+constexpr int DV_THREADS = 256;
+constexpr int DV_WARPS = DV_THREADS / 32;
+constexpr int DV_UNROLL = 4;  // rows a warp has in flight
+
+template <typename T, typename O>
+__global__ void __launch_bounds__(DV_THREADS)
+    decode_dvals_kernel(const uint4* __restrict__ w, const int* __restrict__ idx, const float* __restrict__ g,
+                        O* __restrict__ out, long long L, int vecs, int k) {
+  constexpr int E = Vec<T>::N;
+  extern __shared__ float4 g_s4[];  // the token's g, vecs * E floats
+  const float* g_s = reinterpret_cast<const float*>(g_s4);
+  const long long n = blockIdx.x;
+  const int d4 = vecs * E / 4;
+  const float4* gn = reinterpret_cast<const float4*>(g) + n * d4;
+  for (int i = threadIdx.x; i < d4; i += DV_THREADS) g_s4[i] = gn[i];
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int j0 = warp * DV_UNROLL; j0 < k; j0 += DV_WARPS * DV_UNROLL) {
+    const uint4* wr[DV_UNROLL];
+    bool ok[DV_UNROLL];
+    float acc[DV_UNROLL];
+#pragma unroll
+    for (int u = 0; u < DV_UNROLL; ++u) {
+      const int j = j0 + u;
+      const int row = j < k ? idx[n * k + j] : -1;
+      ok[u] = row >= 0 && row < L;  // a row outside W gives 0
+      wr[u] = w + (long long)(ok[u] ? row : 0) * vecs;
+      acc[u] = 0.f;
+    }
+    for (int c = lane; c < vecs; c += 32) {
+      uint4 v[DV_UNROLL];
+#pragma unroll
+      for (int u = 0; u < DV_UNROLL; ++u) v[u] = ok[u] ? __ldg(wr[u] + c) : make_uint4(0, 0, 0, 0);
+#pragma unroll
+      for (int u = 0; u < DV_UNROLL; ++u) acc[u] = Vec<T>::dot(acc[u], g_s + c * E, v[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < DV_UNROLL; ++u) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) acc[u] += __shfl_xor_sync(0xffffffffu, acc[u], o);
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int u = 0; u < DV_UNROLL; ++u)
+        if (j0 + u < k) out[n * k + j0 + u] = narrow<O>(acc[u]);
+    }
+  }
+}
+
+template <typename T, typename O>
+int launch_dvals(const void* w, const void* idx, const void* g, void* out, long long L, int N, int vecs, int k,
+                 cudaStream_t st) {
+  const size_t smem = (size_t)vecs * Vec<T>::N * sizeof(float);
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(decode_dvals_kernel<T, O>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  decode_dvals_kernel<T, O><<<(unsigned)N, DV_THREADS, smem, st>>>(
+      reinterpret_cast<const uint4*>(w), reinterpret_cast<const int*>(idx), reinterpret_cast<const float*>(g),
+      reinterpret_cast<O*>(out), L, vecs, k);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -416,6 +523,24 @@ int splice_decode(const void* w, const void* pool_idx, const void* pool_vals, co
     return launch_splice<float, __nv_bfloat16>(w, pool_idx, pool_vals, drop, b, clean, out, L, (int)N, F, vecs,
                                                k, kw, st);
   return launch_splice<float, float>(w, pool_idx, pool_vals, drop, b, clean, out, L, (int)N, F, vecs, k, kw, st);
+}
+
+// The decode's dvals.  w: (L, d) fp32 (w_bf16 = 0) or bf16 (w_bf16 = 1), d a
+// multiple of 16 bytes of w and of 4; idx: (N, k) int32; g: (N, d) fp32, 16-byte
+// aligned; out: (N, k), fp32 (out_bf16 = 0) or bf16 (out_bf16 = 1).  Returns
+// a CUDA error code.
+int decode_dvals(const void* w, const void* idx, const void* g, void* out, long long L, long long N, int d, int k,
+                 int w_bf16, int out_bf16, void* stream) {
+  const int elem = w_bf16 ? 2 : 4;
+  if ((d * elem) % 16 || d % 4 || N > 0x7fffffffLL || k < 0) return (int)cudaErrorInvalidValue;
+  const int vecs = d * elem / 16;
+  if (N == 0 || k == 0) return 0;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (w_bf16 && out_bf16)
+    return launch_dvals<__nv_bfloat16, __nv_bfloat16>(w, idx, g, out, L, (int)N, vecs, k, st);
+  if (w_bf16) return launch_dvals<__nv_bfloat16, float>(w, idx, g, out, L, (int)N, vecs, k, st);
+  if (out_bf16) return launch_dvals<float, __nv_bfloat16>(w, idx, g, out, L, (int)N, vecs, k, st);
+  return launch_dvals<float, float>(w, idx, g, out, L, (int)N, vecs, k, st);
 }
 
 }  // extern "C"

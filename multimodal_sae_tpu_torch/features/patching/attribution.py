@@ -186,7 +186,16 @@ def general_attribution_maps(
 ) -> Dict[str, List[np.ndarray]]:
     """The full-forward formulation: per feature, the spliced forward with
     that feature ablated at every hookpoint, and the gradient at each splice.
-    The clean splice does not depend on the feature and runs once."""
+    The clean splice does not depend on the feature and runs once.
+
+    One hookpoint only: with several, the gradient runs through the upper
+    splice's encode and decode, a path not yet held against the JAX package
+    (ROADMAP.md §1), so it is refused."""
+    if len(sae_dict) != 1:
+        raise NotImplementedError(
+            "the general attribution path over several hookpoints is not ported yet: ROADMAP.md §1 "
+            "(it differentiates the upper splice's decode, whose backward came with the training slice)"
+        )
     names = tuple(sae_dict)
     B, S = np.asarray(batch["input_ids"]).shape
     zeros = {

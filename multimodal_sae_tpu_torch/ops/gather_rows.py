@@ -1,4 +1,4 @@
-"""Row gather of a matrix: kernel K2 (`csrc/gather_rows.cu`) in its three
+"""Row gather of a matrix: kernel K2 (`csrc/gather_rows.cu`) in its four
 modes, each beside its plain PyTorch version.
 
 Replaces multimodal_sae_tpu/ops/pallas_gather.py::pallas_gather_rows, whose
@@ -9,13 +9,17 @@ second mode, `gather_decode`, fuses the weighted sum and never writes the
 gathered rows out.  The third mode, `splice_decode`, is the attribution
 chunk's decode: F corrupted splices per token, read from the token's one
 top-(k+1) pool, equal bit for bit to `gather_decode` of each re-selected
-list plus the decoder bias, cast to the splice's dtype.  The TPU kernel's
-limits (d a multiple of 2048, M a multiple of 8) come from its tiling and
-are not kept: any number of rows, and d a multiple of the 16-byte vector.
+list plus the decoder bias, cast to the splice's dtype.  The fourth,
+`decode_dvals`, is the decode's backward for its values
+(`dvals[n, j] = g[n] . W[idx[n, j]]`, multimodal_sae_tpu/ops/
+sparse_decode.py::_sparse_decode_bwd): the same rows, each dotted with the
+token's output gradient.  The TPU kernel's limits (d a multiple of 2048, M
+a multiple of 8) come from its tiling and are not kept: any number of rows,
+and d a multiple of the 16-byte vector.
 
 Bound on an H100: bytes, the distinct rows of W named by idx read once plus
-the indices, weights and output, over 3.35 TB/s (the splice: or its fp32
-FMAs over 33.5 T FMA/s, whichever is larger)."""
+the indices, weights and output, over 3.35 TB/s (the splice and dvals: or
+their fp32 FMAs over 33.5 T FMA/s, whichever is larger)."""
 
 from __future__ import annotations
 
@@ -32,8 +36,11 @@ reads it after."""
 splice_launches = 0
 """Launches of the splice mode so far, counted apart."""
 
+dvals_launches = 0
+"""Launches of the dvals mode so far, counted apart."""
+
 DECODE_DTYPES = (torch.float32, torch.bfloat16)
-PLAIN_ROWS = 128  # splice_decode_plain gathers (128, k, d) at a time: 512 MiB at k = 256, d = 4096 fp32
+PLAIN_ROWS = 128  # the plain splice and dvals gather (128, k, d) at a time: 512 MiB at k = 256, d = 4096 fp32
 
 
 def gather_rows_plain(W: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -225,4 +232,53 @@ def splice_decode(
         )
     kernels.check(err, "splice_decode")
     splice_launches += 1
+    return out
+
+
+def decode_dvals_plain(g: torch.Tensor, idx: torch.Tensor, W: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    """dvals[n, j] = sum_d g[n, d] * W[idx[n, j], d] in fp32, (N, k) in
+    `out_dtype`; PLAIN_ROWS tokens' rows gathered at a time."""
+    out = torch.empty(idx.shape, dtype=out_dtype, device=g.device)
+    g32 = g.float()
+    for r0 in range(0, idx.shape[0], PLAIN_ROWS):
+        rows = W[idx[r0:r0 + PLAIN_ROWS].long()].float()  # (rows, k, d)
+        out[r0:r0 + PLAIN_ROWS] = torch.einsum("nd,nkd->nk", g32[r0:r0 + PLAIN_ROWS], rows).to(out_dtype)
+    return out
+
+
+def decode_dvals(g: torch.Tensor, idx: torch.Tensor, W: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    """The decode's gradient for its values: (N, k) in `out_dtype` (fp32 or
+    bf16), `dvals[n, j] = sum_d g[n, d] * W[idx[n, j], d]` with g (N, d)
+    taken in fp32, W (L, d) fp32 or bf16 and idx (N, k), summed in fp32.
+    On CUDA tensors this launches K2's dvals mode or raises; on CPU tensors
+    it runs the plain version.  The kernel is deterministic (equal inputs,
+    equal bits) and gives 0 for an index outside [0, L), which the plain
+    version refuses."""
+    global dvals_launches
+    if g.dim() != 2 or idx.dim() != 2 or g.shape[0] != idx.shape[0] or W.dim() != 2 or g.shape[1] != W.shape[1]:
+        raise ValueError(f"decode_dvals takes g (N, d), idx (N, k) and W (L, d), got {tuple(g.shape)}, "
+                         f"{tuple(idx.shape)}, {tuple(W.shape)}")
+    if out_dtype not in DECODE_DTYPES or idx.is_floating_point():
+        raise TypeError(f"decode_dvals writes fp32 or bf16 from integer idx, got {out_dtype}, idx {idx.dtype}")
+    if all(t.device.type == "cpu" for t in (g, idx, W)):
+        return decode_dvals_plain(g, idx, W, out_dtype)
+    _check_cuda("decode_dvals", W, g, idx)
+    if W.dtype not in DECODE_DTYPES:
+        raise TypeError(f"decode_dvals kernel takes fp32 or bf16 W, got {W.dtype}")
+    N, k = idx.shape
+    out = torch.empty(N, k, dtype=out_dtype, device=W.device)
+    if out.numel() == 0:
+        return out
+    g32 = g.float().contiguous()
+    idx32 = idx.to(torch.int32).contiguous()
+    if W.data_ptr() % 16 or g32.data_ptr() % 16:
+        raise ValueError("decode_dvals kernel needs W and g on 16-byte boundaries")
+    with torch.cuda.device(W.device):
+        err = _fn("decode_dvals", [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p])(
+            W.data_ptr(), idx32.data_ptr(), g32.data_ptr(), out.data_ptr(), W.shape[0], N, W.shape[1], k,
+            int(W.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    kernels.check(err, "decode_dvals")
+    dvals_launches += 1
     return out

@@ -8,7 +8,8 @@ payload bits survive by construction.  The block-max filter keeps the JAX
 package's block choice and runs its reduce through kernel K1
 (ops/block_max.py) at both levels.  Indices come back as int32, as in JAX.
 Like `torch.topk(sorted=False)`, ties at the k-th value may pick either
-element: results are exact as sets.
+element: results are exact as sets.  `kth_value` is the exact k-th largest
+value, bit for bit the JAX package's.
 """
 
 from __future__ import annotations
@@ -95,6 +96,53 @@ def top_k(x: torch.Tensor, k: int, *, assume_finite: bool = False) -> Pair:
         if k * block * 4 <= width and width % block == 0:
             return blockmax_top_k(x, k, block=block, assume_finite=assume_finite)
     return blockwise_top_k(x, k)
+
+
+KTH_CHUNK_ELEMENTS = 1 << 27
+"""`kth_value` keys at most this many elements at a time (512 MiB of int32
+keys), so a (16,384, 131,072) input needs no second full-size buffer."""
+
+
+def _monotone_key(x: torch.Tensor) -> torch.Tensor:
+    """float32 or bf16 -> int32 with key(a) < key(b) iff a < b, -0.0 below
+    +0.0 (NaNs unspecified): the order of the JAX package's `_monotone_key`,
+    on signed integers (negative floats have their magnitude bits flipped)."""
+    if x.dtype == torch.float32:
+        s, mag = x.view(torch.int32), 0x7FFFFFFF
+    elif x.dtype == torch.bfloat16:
+        s, mag = x.view(torch.int16).to(torch.int32), 0x7FFF
+    else:
+        raise TypeError(f"kth_value takes float32 or bfloat16, got {x.dtype}")
+    return torch.where(s < 0, s ^ mag, s)
+
+
+def _key_to_value(key: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    if dtype == torch.float32:
+        return torch.where(key < 0, key ^ 0x7FFFFFFF, key).view(torch.float32)
+    return torch.where(key < 0, key ^ 0x7FFF, key).to(torch.int16).view(torch.bfloat16)
+
+
+def kth_value(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Exact k-th largest value along the last axis, shape (..., 1)
+    (multimodal_sae_tpu/ops/topk.py `kth_value`).
+
+    The JAX package searches the bits of a monotone integer key with the
+    TPU's counting passes; any exact method gives the same bits, so this is
+    `torch.topk` over that key: -inf entries rank last, ties give their
+    value, and a row with fewer than k finite entries gives -inf.  Rows are
+    keyed `KTH_CHUNK_ELEMENTS` at a time."""
+    width = x.shape[-1]
+    if not 1 <= k <= width:
+        raise ValueError(f"k={k} must be in [1, width={width}]")
+    lead = x.shape[:-1]
+    x2 = x.detach().reshape(-1, width)
+    out = torch.empty(x2.shape[0], 1, dtype=x.dtype, device=x.device)
+    rows = max(1, KTH_CHUNK_ELEMENTS // width)
+    for r0 in range(0, x2.shape[0], rows):
+        key = _monotone_key(x2[r0:r0 + rows].contiguous())
+        kth = torch.topk(key, k, dim=-1, sorted=False).values.amin(-1, keepdim=True)
+        out[r0:r0 + rows] = _key_to_value(kth, x.dtype)
+    return out.reshape(*lead, 1)
 
 
 def sort_pairs_by_index(idx: torch.Tensor, vals: torch.Tensor) -> Pair:

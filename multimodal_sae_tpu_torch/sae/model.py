@@ -1,4 +1,4 @@
-"""TopK sparse autoencoder, inference half (multimodal_sae_tpu/sae/model.py).
+"""TopK sparse autoencoder (multimodal_sae_tpu/sae/model.py).
 
     params = {
         "W_enc": (d_in, L),   # stored transposed vs torch.nn.Linear
@@ -9,24 +9,26 @@
 
     pre_acts = relu((x - b_dec) @ W_enc + b_enc)
     encode   = exact top-k of pre_acts
-    decode   = sparse_decode(top_indices, top_acts) + b_dec   (forward only)
+    decode   = sparse_decode(top_indices, top_acts) + b_dec
+    forward  = fvu + AuxK dead-latent loss + Multi-TopK fvu (training)
 
-The training forward, AuxK, the decoder renorm and decode's backward come
-with the training slice.
+plus the unit-norm decoder renorm and the projection of the decoder's
+gradient off its rows, which the trainer applies around each step.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Dict, NamedTuple, Optional, Union
+from typing import Callable, Dict, NamedTuple, Optional, Union
 
 import torch
 from torch import nn
 
 from ..config import SaeConfig
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, resolve_device, set_precision
 from ..ops import top_k
-from ..ops.sparse_decode import sparse_decode
+from ..ops.sparse_decode import sparse_decode, topk_mask_decode
+from ..ops.topk import kth_value
 from ..utils import natsorted
 
 Params = Dict[str, torch.Tensor]
@@ -38,6 +40,30 @@ class EncoderOutput(NamedTuple):
 
     top_indices: torch.Tensor
     """Indices of the top-k features, (..., k), int32."""
+
+
+class ForwardOutput(NamedTuple):
+    sae_out: torch.Tensor
+
+    latent_acts: Optional[torch.Tensor]
+    """Activations of the top-k latents (None on the fast path unless
+    `return_topk`; training uses `fired`)."""
+
+    latent_indices: Optional[torch.Tensor]
+    """Indices of the top-k features (see `latent_acts`)."""
+
+    fvu: torch.Tensor
+    """Fraction of variance unexplained."""
+
+    auxk_loss: torch.Tensor
+    """AuxK loss, if applicable."""
+
+    multi_topk_fvu: torch.Tensor
+    """Multi-TopK FVU, if applicable."""
+
+    fired: Optional[torch.Tensor] = None
+    """(L,) bool: latents selected with a positive pre-activation anywhere
+    in the batch (fast path; the dead-feature bookkeeping reads it)."""
 
 
 def init_params(
@@ -96,11 +122,125 @@ def decode(params: Params, top_acts: torch.Tensor, top_indices: torch.Tensor) ->
     return sparse_decode(top_indices, top_acts.to(W_dec.dtype), W_dec) + params["b_dec"]
 
 
+def _any_over_tokens(mask: torch.Tensor) -> torch.Tensor:
+    return mask.reshape(-1, mask.shape[-1]).any(dim=0)
+
+
+def forward(
+    params: Params,
+    x: torch.Tensor,
+    cfg: SaeConfig,
+    dead_mask: Optional[torch.Tensor] = None,
+    *,
+    fast: bool = True,
+    return_topk: bool = False,
+    mark: Optional[Callable[[str], None]] = None,
+) -> ForwardOutput:
+    """The training forward (multimodal_sae_tpu/sae/model.py `forward`;
+    reference sae.py:193-247), differentiable in the parameters.
+
+    `fast=True` decodes through `topk_mask_decode` (the dense threshold
+    mask, every latent tied at the k-th value kept); `fast=False` through
+    `select_topk` and `decode`, the sparse decode with its backward.  With
+    `dead_mask` (L,) bool the AuxK loss is added: k_aux = d_in // 2 dead
+    latents selected by their exact k_aux-th score (-inf for live latents,
+    so with fewer dead latents the mask is the dead set), scaled by
+    min(dead / k_aux, 1).  With `cfg.multi_topk` the 4k decode is added and,
+    as in the reference, `sae_out` and `fired` become the 4k ones.
+    `mark(stage)`, when given, is called at the end of the "encode",
+    "top_k", "masked_decode" and "losses" stages (chip_smoke.py times
+    them)."""
+    dtype = params["W_enc"].dtype
+    x = x.to(dtype)
+    pre = pre_acts(params, x)
+    if mark is not None:
+        mark("encode")
+    W_dec, b_dec = params["W_dec"], params["b_dec"]
+
+    if fast:
+        y, _dense, sel_mask = topk_mask_decode(pre, W_dec, cfg.k, mark=mark)
+        sae_out = y + b_dec
+        # Fired = selected and positive: a row with fewer than k positive
+        # pre-activations has k-th value 0, and `pre >= 0` alone would mark
+        # every latent of it as fired (the JAX package's rule, sae/model.py).
+        fired = _any_over_tokens(sel_mask & (pre > 0))
+        if return_topk:
+            top_acts, top_indices = select_topk(pre.detach(), cfg.k)
+        else:
+            top_acts = top_indices = None
+    else:
+        top_acts, top_indices = select_topk(pre, cfg.k)
+        if mark is not None:
+            mark("top_k")
+        sae_out = decode(params, top_acts, top_indices)
+        if mark is not None:
+            mark("masked_decode")
+        fired = None
+
+    e = sae_out - x
+    total_variance = torch.sum((x - x.mean(dim=0)) ** 2)
+    l2_loss = torch.sum(e * e)
+    fvu = l2_loss / total_variance
+
+    if dead_mask is not None:
+        k_aux = x.shape[-1] // 2
+        num_dead = dead_mask.sum().to(dtype)
+        scale = torch.clamp(num_dead / k_aux, max=1.0)
+        scores = torch.where(dead_mask, pre.detach(), float("-inf"))
+        kth = kth_value(scores, min(k_aux, scores.shape[-1] - 1))
+        del scores
+        aux_mask = dead_mask & (pre >= kth)
+        dense_aux = torch.where(aux_mask, pre, 0.0)
+        e_hat = dense_aux @ W_dec.to(dtype) + b_dec
+        auxk_loss = scale * torch.sum((e_hat - e) ** 2) / total_variance
+    else:
+        auxk_loss = torch.zeros((), dtype=dtype, device=x.device)
+
+    if cfg.multi_topk:
+        y4, _dense4, sel4 = topk_mask_decode(pre, W_dec, 4 * cfg.k)
+        sae_out4 = y4 + b_dec
+        multi_topk_fvu = torch.sum((sae_out4 - x) ** 2) / total_variance
+        sae_out = sae_out4  # the reference's quirk (sae.py:232-238), kept
+        if fired is not None:
+            fired = _any_over_tokens(sel4 & (pre > 0))
+        if top_acts is not None:
+            top_acts, top_indices = select_topk(pre.detach(), 4 * cfg.k)
+    else:
+        multi_topk_fvu = torch.zeros((), dtype=dtype, device=x.device)
+    if mark is not None:
+        mark("losses")
+
+    return ForwardOutput(sae_out, top_acts, top_indices, fvu, auxk_loss, multi_topk_fvu, fired)
+
+
+@torch.no_grad()
+def set_decoder_norm_to_unit_norm(params: Params) -> Params:
+    """Renormalise the decoder's rows to unit norm (reference sae.py:249-255):
+    W_dec / (||row|| + eps), in place (the trainer stores the result back;
+    at 131,072 x 4,096 a copy would cost 2.1 GB).  Returns `params`."""
+    W_dec = params["W_dec"]
+    eps = torch.finfo(W_dec.dtype).eps
+    W_dec.div_(torch.linalg.vector_norm(W_dec, dim=1, keepdim=True) + eps)
+    return params
+
+
+@torch.no_grad()
+def remove_gradient_parallel_to_decoder_directions(params: Params, grads: Params) -> Params:
+    """Project the decoder's gradient off the decoder's rows (reference
+    sae.py:257-271), in place on grads["W_dec"]: g - (g . W_row) W_row.
+    Returns `grads`."""
+    W_dec, g = params["W_dec"], grads["W_dec"]
+    parallel = torch.einsum("ld,ld->l", g, W_dec)
+    g.sub_(parallel[:, None] * W_dec)
+    return grads
+
+
 class Sae(nn.Module):
     """(params, cfg, d_in) with the reference's object API: `pre_acts`,
-    `select_topk`, `encode`, `decode`, `save_to_disk`, `load_from_disk`,
-    `load_many`.  The parameters are buffers (nothing here has a
-    backward)."""
+    `select_topk`, `encode`, `decode`, `forward`, `save_to_disk`,
+    `load_from_disk`, `load_many`.  The parameters are buffers, which the
+    cache and attribution paths never differentiate; the trainer turns on
+    their `requires_grad` and keeps their gradients in `.grad`."""
 
     def __init__(
         self,
@@ -139,6 +279,11 @@ class Sae(nn.Module):
 
     def decode(self, top_acts: torch.Tensor, top_indices: torch.Tensor) -> torch.Tensor:
         return decode(self.params, top_acts, top_indices)
+
+    def forward(self, x: torch.Tensor, dead_mask: Optional[torch.Tensor] = None, **kw) -> ForwardOutput:
+        """The training forward (module-level `forward`), with TF32 off."""
+        set_precision()
+        return forward(self.params, x, self.cfg, dead_mask, **kw)
 
     def save_to_disk(self, path: Union[Path, str]) -> None:
         from .serde import save_sae_to_disk

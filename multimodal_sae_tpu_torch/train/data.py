@@ -1,8 +1,12 @@
-"""Dataset tokenization for the cache CLI (a copy of
-`chunk_and_tokenize` from multimodal_sae_tpu/train/data.py).  Host-side;
+"""Training and caching datasets (copies of `chunk_and_tokenize` and
+`MemmapDataset` from multimodal_sae_tpu/train/data.py).  Host-side;
 `datasets` and `transformers` objects come in from the caller."""
 
 from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
 
 
 def chunk_and_tokenize(
@@ -83,3 +87,30 @@ def get_columns_all_equal(dataset) -> list:
     if len(distinct) != 1:
         raise ValueError("All splits must have the same columns")
     return list(distinct.pop())
+
+
+class MemmapDataset:
+    """Rows of `ctx_len` token ids from a memory-mapped token file
+    (reference data.py:167-199).  `dtype` defaults to the reference's
+    uint16, which cannot hold ids of a vocabulary above 65,536 (LLaMA-3 has
+    128,256): write such files as uint32 and pass `dtype=np.uint32`."""
+
+    def __init__(self, data_path: str, ctx_len: int, max_examples: Optional[int] = None, dtype=np.uint16):
+        mmap = np.memmap(data_path, dtype=dtype, mode="r").reshape(-1, ctx_len)
+        self.mmap = mmap[:max_examples]
+
+    def __len__(self):
+        return len(self.mmap)
+
+    def __getitem__(self, idx):
+        return dict(input_ids=self.mmap[idx].astype(np.int64))
+
+    def select(self, rng: range) -> "MemmapDataset":
+        out = MemmapDataset.__new__(MemmapDataset)
+        out.mmap = self.mmap[rng.start : rng.stop]
+        return out
+
+    def shard(self, num_shards: int, shard_id: int) -> "MemmapDataset":
+        out = MemmapDataset.__new__(MemmapDataset)
+        out.mmap = np.array_split(self.mmap, num_shards)[shard_id]
+        return out

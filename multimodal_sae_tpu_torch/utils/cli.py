@@ -6,7 +6,8 @@ module provides the small subset we need: flags named after fields
 (underscores → dashes accepted too), positional fields via
 `metadata={"positional": True}`, nested dataclasses flattened
 (`--k`, `--expansion_factor` style, like simple_parsing's default), bools as
-`--flag` / `--no-flag` pairs, and lists as nargs="*".
+`--flag` / `--no-flag` pairs, and lists as nargs="*".  A field's
+`metadata["help"]`, where it has one, is its help text.
 """
 
 from __future__ import annotations
@@ -27,9 +28,9 @@ def _unwrap_optional(tp):
     return tp
 
 
-def _field_doc(cls, name: str) -> str:
+def _field_doc(cls, f: dataclasses.Field) -> str:
     # Dataclasses don't retain per-field docstrings; keep help minimal.
-    return name.replace("_", " ")
+    return f.metadata.get("help") or f.name.replace("_", " ")
 
 
 def add_dataclass_args(
@@ -53,7 +54,7 @@ def add_dataclass_args(
         )
 
         if positional:
-            parser.add_argument(name, nargs="?", default=default, help=_field_doc(cls, name))
+            parser.add_argument(name, nargs="?", default=default, help=_field_doc(cls, f))
             continue
 
         # Register both spellings (argparse does not treat - and _ as
@@ -64,7 +65,7 @@ def add_dataclass_args(
         if tp is bool:
             group = parser.add_mutually_exclusive_group()
             group.add_argument(
-                *flags, dest=name, action="store_true", default=default
+                *flags, dest=name, action="store_true", default=default, help=_field_doc(cls, f)
             )
             group.add_argument(
                 f"--no-{name.replace('_', '-')}",

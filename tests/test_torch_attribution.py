@@ -269,12 +269,12 @@ def test_entry_points_turn_tf32_off(jax_llama, tmp_path, monkeypatch, entry):
 def test_general_path_on_a_padded_batch(jax_llama):
     """The general path with one splice equals the fast path on a
     left-padded batch.  Two splices at once differentiate the upper splice's
-    decode, whose backward comes with the training slice: refused."""
+    decode, a path not yet held against the JAX package: refused."""
     model = LlamaModel(llama_params_from_jax(jax_llama, device="cpu"), LlamaConfig(**TINY, flash_attention=True))
     _, sae = _sae_pair()
     batch = _batch(True)
     metric = partial(get_logit_diff, answer_token_indices=torch.as_tensor(ANSWERS))
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(NotImplementedError, match="several hookpoints"):
         general_attribution_maps(model, {"layers.0": sae, HOOK: sae}, batch, metric, [0], progress=False)
     one = general_attribution_maps(model, {HOOK: sae}, batch, metric, [0, 5], progress=False)[HOOK]
     fast = fast_attribution_maps(model, HOOK, sae, batch, metric, [0, 5], progress=False)[HOOK]

@@ -4,8 +4,9 @@ interpret mode, as tests/test_pallas_gather.py runs it; `gather_decode`,
 `eager_decode`, `scatter_dense` and `Sae.decode` on the same weights and
 inputs.  Tolerances: fp32 rtol 1e-5 (sums of k products in different
 orders); bf16 one ulp (2^-8) of the largest output, both sides summing in
-fp32 and rounding once.  `sparse_decode` has no backward yet and must
-refuse inputs that require grad.  The CUDA kernel is held against the same
+fp32 and rounding once.  `sparse_decode`'s backward is held against the
+dense scatter's autograd here and against the JAX package's VJP in
+tests/test_torch_train_ops.py.  The CUDA kernel is held against the same
 plain versions on the card by chip_smoke.py."""
 
 import numpy as np
@@ -120,14 +121,19 @@ def test_decode_needs_the_decoder(tmp_path):
 
 
 def test_sparse_decode_refuses_grad():
-    """No backward yet: inputs that require grad raise instead of giving a
-    result whose gradient would be wrong; without autograd they decode."""
+    """The decode once refused autograd; it now has the JAX package's VJP
+    (dvals = g . W[idx], dW = S^T g): both gradients equal the dense
+    scatter's autograd within 1e-5 (fp32 sums in other orders), the indices
+    get none, and without autograd it decodes as before."""
     idx, vals = _topk_inputs(3, 2, 8)
-    ti, tv, tW = torch.from_numpy(idx), torch.from_numpy(vals), torch.randn(8, 4)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        sd.sparse_decode(ti, tv.clone().requires_grad_(), tW)
-    with pytest.raises(NotImplementedError):
-        sd.sparse_decode(ti, tv, tW.clone().requires_grad_())
+    ti, tv, tW = torch.from_numpy(idx), torch.from_numpy(vals), torch.randn(8, 4, generator=torch.Generator().manual_seed(0))
+    g = torch.randn(3, 4, generator=torch.Generator().manual_seed(1))
+    got_v, got_W = tv.clone().requires_grad_(), tW.clone().requires_grad_()
+    ref_v, ref_W = tv.clone().requires_grad_(), tW.clone().requires_grad_()
+    (sd.sparse_decode(ti, got_v, got_W) * g).sum().backward()
+    (sd.eager_decode(ti, ref_v, ref_W) * g).sum().backward()
+    assert torch.allclose(got_v.grad, ref_v.grad, rtol=RTOL, atol=1e-6)
+    assert torch.allclose(got_W.grad, ref_W.grad, rtol=RTOL, atol=1e-6)
     with torch.no_grad():
         out = sd.sparse_decode(ti, tv.clone().requires_grad_(), tW)
     assert torch.allclose(out, sd.eager_decode(ti, tv, tW), rtol=RTOL, atol=1e-6)

@@ -23,6 +23,14 @@ ATTRIBUTION_MODULES = (
     "multimodal_sae_tpu_torch.features.patching.attribution",
     "multimodal_sae_tpu_torch.features.patching.utils",
 )
+TRAIN_MODULES = (
+    "multimodal_sae_tpu_torch.__main__",
+    "multimodal_sae_tpu_torch.ops.adam",
+    "multimodal_sae_tpu_torch.ops.adam8bit",
+    "multimodal_sae_tpu_torch.ops.geometric_median",
+    "multimodal_sae_tpu_torch.train.data",
+    "multimodal_sae_tpu_torch.train.trainer",
+)
 
 
 def _imports(path: Path):
@@ -47,7 +55,7 @@ def test_importing_every_module_leaves_jax_unloaded():
         "import multimodal_sae_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        f"assert set({ATTRIBUTION_MODULES!r}) <= set(names)\n"
+        f"assert set({ATTRIBUTION_MODULES + TRAIN_MODULES!r}) <= set(names)\n"
         "import chip_smoke\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert len(names) > 20 and not bad, (len(names), bad)\n"
@@ -65,12 +73,14 @@ def no_cuda(monkeypatch):
 
 
 def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
-    from multimodal_sae_tpu_torch.config import CacheConfig, SaeConfig
+    from multimodal_sae_tpu_torch.__main__ import run
+    from multimodal_sae_tpu_torch.config import CacheConfig, SaeConfig, TrainConfig
     from multimodal_sae_tpu_torch.features.patching import Attribution
     from multimodal_sae_tpu_torch.interp_utils import load_saes
     from multimodal_sae_tpu_torch.launch.cache import cache as cli
     from multimodal_sae_tpu_torch.models import LlamaConfig, LlamaModel, SyntheticActivationSource
     from multimodal_sae_tpu_torch.sae import Sae
+    from multimodal_sae_tpu_torch.train import SaeTrainer
 
     tiny = LlamaConfig(vocab_size=8, hidden_size=8, intermediate_size=8, num_hidden_layers=1,
                        num_attention_heads=2, num_key_value_heads=1)
@@ -83,6 +93,8 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
         lambda: SyntheticActivationSource(),
         lambda: cli.main(CacheConfig(model="synthetic://4,1,8", sae_path=str(tmp_path))),
         lambda: Attribution(None, None, str(tmp_path), str(tmp_path / "probe.json"), selected_sae="layers.0"),
+        lambda: SaeTrainer(TrainConfig(hookpoints=["layers.0"]), [], SyntheticActivationSource(d_model=4, device="cpu")),
+        lambda: run(["synthetic://4,1,8", str(tmp_path / "tokens.bin")]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
