@@ -9,14 +9,18 @@ Phases; any failure raises and ends the run with a non-zero exit code:
    `multimodal_sae_tpu_torch/csrc/` with nvcc for sm_90a (one process per
    source, in parallel);
 2. block_max (K1) against its plain version, bit-exact, at the shapes of the
-   main path's two filter levels and at bf16 block 128, then at every block
-   it takes;
+   text and image caches' two filter levels (16,384 and 9,360 tokens) and at
+   bf16 block 128, then at every block it takes;
 3. flash_attention (K3) against its plain version at LLaMA-3-8B's attention
    shape, unmasked and with one row left-padded by 100, each timed as the
    median, min and max of 5 repeats beside its bound, its TFLOP/s and SDPA
    (with the pad mask where there is one), with the forward kernel's
-   registers, shared memory and blocks per SM at hd 128 and 64; then at edge
-   shapes;
+   registers, shared memory and blocks per SM at hd 128 and 64; then at the
+   image cache's two shapes, (4, 32, 8, 2,341, 128) unmasked and
+   (4, 32, 8, 2,929, 128) right-padded to valid lengths 2,341, 1,177, 2,329
+   and 2,929, every row compared (pad queries included) and timed the same
+   way; then at edge shapes, two of them right-padded with pads that end
+   inside a 64-key tile;
 4. flash_attention_bwd (K3 backward): the kernels' forward and backward
    against the plain pair at (2, 32, 8, 2,432, 128) bf16, unmasked and with
    row 0 left-padded by 300 (dO zero on its rows without a valid key): the
@@ -76,7 +80,20 @@ Phases; any failure raises and ends the run with a non-zero exit code:
    fast path at full width on 4,096 tokens (a counted run: K1, K2's decode
    and dvals modes), and K2's dvals mode against its plain version (equal
    bits twice, timed beside its bound);
-9. a `kernels` JSON line, the card line, and the result line.
+9. image_cache_path: a random LLaVA-NeXT at llama3-llava-next-8b's widths
+   (CLIP-L/336 tower, projector, LLaMA-3-8B text cut to the 25 layers
+   model.layers.24 reads; bf16, flash attention) feeding the 131,072-latent
+   SAE (saved, read back) through `FeatureImageCache` (BOS dropped, streaming
+   splits, 128 of them) over 4 batches of 4 images of 480 x 640 (2,341
+   tokens a row) and one of 4 geometries right-padded to 2,929, prepared
+   here with seeded pixels (one array per image, so the tower runs once per
+   image); checks the row lengths, the launch counts, the splits and their
+   `.featidx` sidecars, every cached row against an independent top-k of
+   its hidden (captured again after the counted run), and each image of the
+   mixed batch alone against its padded row (equal bits); prints smoke
+   readings of images/s, tokens/s and peak memory over the five batches,
+   and one batch's stages (CUDA events);
+10. a `kernels` JSON line, the card line, and the result line.
 
 Needs one CUDA card; exits non-zero without one.  Imports nothing of JAX.
 """
@@ -246,16 +263,21 @@ def _bits_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 def phase_block_max(dev) -> dict:
     """K1 at the main path's two filter levels (level 1 over the 131,072
-    latents at block 64, level 2 over the 16,384 candidates at block 8, fp32,
-    8 x 2,048 tokens) and at bf16 block 128."""
+    latents at block 64, level 2 over the 16,384 candidates at block 8, fp32),
+    for the text cache's 8 x 2,048 tokens and the image cache's 9,360 (4
+    images of 2,341 tokens less the BOS), and at bf16 block 128."""
     from multimodal_sae_tpu_torch.ops import block_max as bm
 
     gen = torch.Generator(device=dev).manual_seed(1)
-    per_step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0}
-    for n, w, block, dtype in (
-        (16384, 131072, 64, torch.float32),
-        (16384, 16384, 8, torch.float32),
-        (4096, 131072, 128, torch.bfloat16),
+    zero = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    per_step = {"text": dict(zero), "image": dict(zero)}
+    max_abs_err = 0.0
+    for n, w, block, dtype, step in (
+        (16384, 131072, 64, torch.float32, "text"),
+        (16384, 16384, 8, torch.float32, "text"),
+        (9360, 131072, 64, torch.float32, "image"),
+        (9360, 16384, 8, torch.float32, "image"),
+        (4096, 131072, 128, torch.bfloat16, None),
     ):
         x = torch.randn(n, w, generator=gen, device=dev, dtype=torch.float32).to(dtype)
         x[1, 5] = float("nan")
@@ -276,11 +298,11 @@ def phase_block_max(dev) -> dict:
             "kernel_ms": kernel_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
         })
-        if dtype == torch.float32:  # the main path's two calls per step
+        if step is not None:  # a main path's two calls per step
             for key, val in (("ms", kernel_ms), ("plain_ms", plain_ms),
                              ("library_ms", library_ms), ("bound_ms", bound_ms)):
-                per_step[key] += val
-        per_step["max_abs_err"] = max(per_step["max_abs_err"], err)
+                per_step[step][key] += val
+        max_abs_err = max(max_abs_err, err)
         del x, got, ref
     for block in bm.BLOCKS:
         for dtype in (torch.float32, torch.bfloat16):
@@ -290,7 +312,7 @@ def phase_block_max(dev) -> dict:
     emit({"phase": "block_max_blocks", "shape": [64, 16384], "blocks": list(bm.BLOCKS),
           "dtypes": ["float32", "bfloat16"], "bitexact": True})
     torch.cuda.empty_cache()
-    return per_step
+    return {**per_step["text"], "max_abs_err": max_abs_err, "image_step": per_step["image"]}
 
 
 def _check_attention(fa, q, k, v, pad_mask, scale, what) -> float:
@@ -308,7 +330,9 @@ def _check_attention(fa, q, k, v, pad_mask, scale, what) -> float:
 def phase_flash_attention(dev) -> dict:
     """K3 at LLaMA-3-8B's attention shape on the main path (B=8, H=32,
     kvH=8, S=2048, hd=128, bf16), unmasked (the main path's call) and with
-    row 0 left-padded by 100; then edge shapes, all rows compared."""
+    row 0 left-padded by 100; then the image cache's two shapes (uniform,
+    and right-padded); then edge shapes, left- and right-padded, all rows
+    compared."""
     import torch.nn.functional as F
 
     from multimodal_sae_tpu_torch.ops import flash_attention as fa
@@ -356,23 +380,89 @@ def phase_flash_attention(dev) -> dict:
             result.update({key: line[key] for key in ("plain_ms", "library_ms", "bound_ms", "bound_by")})
             result["ms"] = line["kernel_ms"]
     del q, k, v, kr, vr
+    torch.cuda.empty_cache()
+    # The image cache's two shapes: a uniform batch of 4 images of 2,341
+    # tokens (no mask), and the mixed batch of 4 geometries right-padded to
+    # 2,929 (valid lengths 2,341, 1,177, 2,329 and 2,929).
+    result["image_shapes"] = [
+        _attention_case(fa, gen, dev, 4, 32, 8, 2341, 128, None),
+        _attention_case(fa, gen, dev, 4, 32, 8, 2929, 128, [2341, 1177, 2329, 2929]),
+    ]
+    result["max_abs_err"] = max([result["max_abs_err"]] + [c["max_abs_err"] for c in result["image_shapes"]])
     # Edges: one token, ragged tiles, kvH = H and kvH = 1, hd 64, rows of
-    # pads only, pad queries past one 64-row tile.
+    # pads only, pad queries past one 64-row tile; then right pads (valid
+    # lengths) that end inside a 64-key tile.
     edges = ((1, 2, 2, 1, 128, None), (2, 4, 1, 65, 128, [0, 30]), (1, 8, 2, 130, 64, [129]),
              (3, 4, 4, 64, 128, [0, 63, 10]), (2, 2, 1, 17, 64, [17, 3]), (1, 4, 2, 300, 128, [150]))
-    for B_, H_, kvH_, S_, hd_, pads in edges:
+    right_edges = ((3, 4, 2, 150, 128, [100, 150, 37]), (2, 8, 2, 200, 64, [130, 75]))
+    right_err = 0.0
+    for B_, H_, kvH_, S_, hd_, pads in edges + right_edges:
         q = torch.randn(B_, H_, S_, hd_, generator=gen, device=dev).to(torch.bfloat16)
         k = torch.randn(B_, kvH_, S_, hd_, generator=gen, device=dev).to(torch.bfloat16)
         v = torch.randn(B_, kvH_, S_, hd_, generator=gen, device=dev).to(torch.bfloat16)
         pad_mask = None
         if pads is not None:
-            pad_mask = (torch.arange(S_, device=dev)[None, :] >= torch.tensor(pads, device=dev)[:, None]).int()
+            bound = torch.tensor(pads, device=dev)[:, None]
+            pos = torch.arange(S_, device=dev)[None, :]
+            pad_mask = (pos < bound if (B_, H_, kvH_, S_, hd_, pads) in right_edges else pos >= bound).int()
         err = _check_attention(fa, q, k, v, pad_mask, hd_ ** -0.5, (B_, H_, kvH_, S_, hd_, pads))
         result["max_abs_err"] = max(result["max_abs_err"], err)
+        if (B_, H_, kvH_, S_, hd_, pads) in right_edges:
+            right_err = max(right_err, err)
+    result["right_pad_edges_max_abs_err"] = right_err
     emit({"phase": "flash_attention_edges", "cases": [list(e[:5]) for e in edges],
+          "right_pad_cases": [list(e) for e in right_edges], "right_pad_max_abs_err": right_err,
           "max_abs_err": result["max_abs_err"], "atol": K3_ATOL, "rtol": K3_RTOL})
     torch.cuda.empty_cache()
     return result
+
+
+def _attention_case(fa, gen, dev, B, H, kvH, S, hd, valid) -> dict:
+    """K3 at one shape against its plain version on every row (pad queries
+    included), timed (median of 5 repeats) beside its bound, the plain
+    version and SDPA; `valid` gives each row's valid length (right pads), or
+    None for no mask."""
+    import torch.nn.functional as F
+
+    scale = hd ** -0.5
+    q = torch.randn(B, H, S, hd, generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn(B, kvH, S, hd, generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn(B, kvH, S, hd, generator=gen, device=dev).to(torch.bfloat16)
+    real = torch.ones(B, S, dtype=torch.bool, device=dev)
+    pad_mask = sdpa_mask = None
+    if valid is not None:
+        real = torch.arange(S, device=dev)[None, :] < torch.tensor(valid, device=dev)[:, None]
+        pad_mask = real.to(torch.int32)
+        sdpa_mask = torch.ones(S, S, dtype=torch.bool, device=dev).tril() & real[:, None, None, :]
+    what = f"({B}, {H}, {kvH}, {S}, {hd}), valid lengths {valid}"
+    err = _check_attention(fa, q, k, v, pad_mask, scale, what)
+    torch.cuda.empty_cache()
+    # The work this data needs: causal (query, key) pairs with a valid key,
+    # 4 * hd operations each; q, k, v read, o written.
+    pairs = (torch.tril(torch.ones(S, S, device=dev))[None] * real[:, None, :].float()).sum().item()
+    flops = 4.0 * hd * H * pairs
+    nbytes = (2 * B * H * S * hd + 2 * B * kvH * S * hd) * 2
+    repeats = time_repeats(lambda: fa.flash_attention(q, k, v, pad_mask, scale))
+    line = {
+        "phase": "flash_attention_image", "shape": [B, H, kvH, S, hd], "valid_lengths": valid,
+        "max_abs_err": err, "atol": K3_ATOL, "rtol": K3_RTOL,
+        "ms": repeats["median"], "kernel_ms_repeats": repeats, "tflops": flops / repeats["median"] / 1e9,
+        "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v, pad_mask, scale), iters=2, warmup=1),
+        "bound_ms": max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3,
+        "bound_by": "operations" if flops / BF16_FLOPS > nbytes / HBM_BYTES_PER_S else "bytes",
+    }
+    if sdpa_mask is None:
+        line["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=scale, enable_gqa=True))
+    else:  # SDPA's masked kernels take k and v repeated to H heads
+        kr, vr = (t.repeat_interleave(H // kvH, dim=1) for t in (k, v))
+        line["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+            q, kr, vr, attn_mask=sdpa_mask, scale=scale))
+        del kr, vr
+    emit(line)
+    del q, k, v, sdpa_mask
+    torch.cuda.empty_cache()
+    return {key: val for key, val in line.items() if key not in ("phase", "kernel_ms_repeats", "atol", "rtol")}
 
 
 def _grad_errors(got: torch.Tensor, ref: torch.Tensor, what: str) -> dict:
@@ -563,6 +653,57 @@ def _check_topk_as_sets(latents: torch.Tensor, vals: torch.Tensor, idx: torch.Te
         raise AssertionError("top-k index set differs from torch.topk beyond k-th-value ties")
 
 
+def counting(cache_cls):
+    """`cache_cls` counting the top-k values above the extraction threshold
+    that its host step receives (the number of entries the splits must
+    hold)."""
+
+    class Counting(cache_cls):
+        above = 0
+
+        def _host_step(self, dev_out, batch_number, n_rows):
+            for vals, _idx, event in dev_out.values():
+                event.synchronize()
+                self.above += int((vals.abs() > 1e-5).sum())
+            super()._host_step(dev_out, batch_number, n_rows)
+
+    return Counting
+
+
+def check_splits(module_dir: str, n_splits: int, width: int) -> tuple:
+    """The merged splits of one hookpoint: `n_splits` files, each with its
+    features inside its range and a `.featidx` sidecar that reads back;
+    returns every split's (locations, activations) concatenated."""
+    from multimodal_sae_tpu_torch.features.split_index import read_index
+    from multimodal_sae_tpu_torch.utils.safetensors_io import load_file
+
+    splits = sorted((f for f in os.listdir(module_dir) if f.endswith(".safetensors")),
+                    key=lambda f: int(f.split("_")[0]))
+    if len(splits) != n_splits or any(f.startswith("Rank") for f in splits):
+        raise AssertionError(f"expected {n_splits} merged splits, found {splits[:3]}...")
+    locs_all, acts_all = [], []
+    for f in splits:
+        start, end = (int(x) for x in f[: -len(".safetensors")].split("_"))
+        data = load_file(os.path.join(module_dir, f))
+        locs, acts = data["locations"].numpy(), data["activations"].numpy()
+        feats = locs[:, 2]
+        if len(feats) and (feats.min() < start or feats.max() > end):
+            raise AssertionError(f"split {f} holds features outside [{start}, {end}]")
+        if not os.path.exists(os.path.join(module_dir, f.replace(".safetensors", ".featidx"))):
+            raise AssertionError(f"split {f} has no .featidx sidecar")
+        index = read_index(os.path.join(module_dir, f), len(acts))
+        if index is None or not np.array_equal(feats[np.asarray(index[0])], np.asarray(index[1])):
+            raise AssertionError(f"split {f}'s .featidx does not read back its features")
+        locs_all.append(locs)
+        acts_all.append(acts)
+    locs, acts = np.concatenate(locs_all), np.concatenate(acts_all)
+    if not ((locs[:, 2] >= 0).all() and (locs[:, 2] < width).all()):
+        raise AssertionError("merged feature indices out of range")
+    if not (np.isfinite(acts).all() and (np.abs(acts) > 1e-5).all()):
+        raise AssertionError("merged activations non-finite or under the threshold")
+    return locs, acts
+
+
 def phase_cache_path(dev, card: str) -> dict:
     """The cache path at LLaMA-3-8B width (random bf16 weights, depth cut to
     the 25 layers hookpoint layers.24 reads) and the released SAE's width
@@ -574,7 +715,6 @@ def phase_cache_path(dev, card: str) -> dict:
     from multimodal_sae_tpu_torch.models.llama import LlamaConfig, LlamaModel
     from multimodal_sae_tpu_torch.ops import top_k
     from multimodal_sae_tpu_torch.sae import Sae, pre_acts
-    from multimodal_sae_tpu_torch.utils.safetensors_io import load_file
 
     setup(dev)
     n_batches, batch_size, ctx_len, n_splits, hook = 4, 8, 2048, 128, "layers.24"
@@ -585,18 +725,7 @@ def phase_cache_path(dev, card: str) -> dict:
     torch.cuda.synchronize()
     seconds["init_subject"] = time.perf_counter() - t0
 
-    class CountingCache(FeatureCache):
-        """Counts the top-k values above the extraction threshold that the
-        host step receives (the number of entries the splits must hold)."""
-
-        above = 0
-
-        def _host_step(self, dev_out, batch_number, n_rows):
-            for vals, _idx, event in dev_out.values():
-                event.synchronize()
-                self.above += int((vals.abs() > 1e-5).sum())
-            super()._host_step(dev_out, batch_number, n_rows)
-
+    CountingCache = counting(FeatureCache)
     rng = np.random.default_rng(0)
     rows = [{"input_ids": rng.integers(0, cfg.vocab_size, size=ctx_len)}
             for _ in range(n_batches * batch_size)]
@@ -642,36 +771,12 @@ def phase_cache_path(dev, card: str) -> dict:
         fc.concate_safetensors(n_splits, save_dir)
         seconds["save_and_merge"] = time.perf_counter() - t0
 
-        module_dir = os.path.join(save_dir, hook)
-        splits = sorted(
-            (f for f in os.listdir(module_dir) if f.endswith(".safetensors")),
-            key=lambda f: int(f.split("_")[0]),
-        )
-        if len(splits) != n_splits or any(f.startswith("Rank") for f in splits):
-            raise AssertionError(f"expected {n_splits} merged splits, found {splits[:3]}...")
-        n_entries = 0
-        locs_all, acts_all = [], []
-        for f in splits:
-            start, end = (int(x) for x in f[: -len(".safetensors")].split("_"))
-            data = load_file(os.path.join(module_dir, f))
-            locs, acts = data["locations"].numpy(), data["activations"].numpy()
-            feats = locs[:, 2]
-            if len(feats) and (feats.min() < start or feats.max() > end):
-                raise AssertionError(f"split {f} holds features outside [{start}, {end}]")
-            if not os.path.exists(os.path.join(module_dir, f.replace(".safetensors", ".featidx"))):
-                raise AssertionError(f"split {f} has no .featidx sidecar")
-            n_entries += len(acts)
-            locs_all.append(locs)
-            acts_all.append(acts)
+        locs, acts = check_splits(os.path.join(save_dir, hook), n_splits, 131072)
+        n_entries = len(acts)
         if n_entries != fc.above:
             raise AssertionError(f"merged splits hold {n_entries} entries, top-k gave {fc.above} above 1e-5")
-        locs = np.concatenate(locs_all)
-        if not ((locs[:, 2] >= 0).all() and (locs[:, 2] < 131072).all()
-                and (locs[:, 0] < n_batches * batch_size).all() and (locs[:, 1] < ctx_len).all()):
+        if not ((locs[:, 0] < n_batches * batch_size).all() and (locs[:, 1] < ctx_len).all()):
             raise AssertionError("merged locations out of range")
-        acts = np.concatenate(acts_all)
-        if not (np.isfinite(acts).all() and (np.abs(acts) > 1e-5).all()):
-            raise AssertionError("merged activations non-finite or under the threshold")
 
     # Batch 0 again, stage by stage: its top-k against torch.topk as sets.
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
@@ -1494,6 +1599,223 @@ def phase_train_path(dev, card: str) -> dict:
     return {"launches": {name: launches[name] + slow_launches[name] for name in launches}, "dvals": dvals}
 
 
+UNIFORM_HW = (480, 640)
+MIXED_HW = ((480, 640), (336, 336), (300, 900), (1000, 1000))
+MIXED_LENGTHS = (2341, 1177, 2329, 2929)
+# The image cache's batches (as bench.py's image headline): 4 images of
+# 480 x 640 (5 crops, 2,341 tokens a row with the BOS), and 4 geometries
+# whose rows the subject right-pads to 2,929.
+IMAGE_BOS = 128000
+# Each image of the mixed batch run alone (a batch of 1, no mask, its own
+# ragged length) must give its row of the mixed batch (right-padded to
+# 2,929) bit for bit over its valid tokens at model.layers.24, as every
+# chip run has.  Causality keeps right-pad keys away from every valid
+# query, so this check cannot see a pad key read: it holds the tower, the
+# scatter and K3 consistent across sequence lengths and ragged last tiles.
+# K3's key mask is held by phase_flash_attention's right-pad cases.
+
+
+def _image_batch(cfg, sizes, rng) -> dict:
+    """A prepared LLaVA-NeXT batch as `prepare_inputs` builds it (the card's
+    machine has no PIL): the prompt [BOS, <image>] with the placeholder
+    expanded to each image's token count, right-padded with a mask, and a
+    pixel array of each image's crops drawn from `rng`, one array per
+    image so that the tower runs once per image."""
+    from multimodal_sae_tpu_torch.models.llava_next import get_number_of_features, image_size_to_num_patches
+
+    S = cfg.vision_config.image_size
+    pixels, rows = [], []
+    for h, w in sizes:
+        n_crops = image_size_to_num_patches((h, w), cfg.image_grid_pinpoints, S)
+        pixels.append(rng.standard_normal((n_crops, 3, S, S), dtype=np.float32))
+        rows.append([IMAGE_BOS] + [cfg.image_token_index] * get_number_of_features(h, w, cfg))
+    ids = np.zeros((len(rows), max(map(len, rows))), np.int64)
+    mask = np.zeros_like(ids)
+    for i, row in enumerate(rows):
+        ids[i, : len(row)] = row
+        mask[i, : len(row)] = 1
+    return {"input_ids": ids, "attention_mask": mask, "pixel_values": pixels, "image_sizes": list(sizes)}
+
+
+def check_cached_topk(locs, acts, h, row0: int, sae) -> None:
+    """The cached rows row0 .. row0 + B of one batch against an independent
+    top-k of its hidden `h` (B, S, D; BOS dropped): each entry's activation
+    equals the recomputed latent bit for bit and is at least its token's
+    k-th value, no (token, feature) pair repeats, and each token holds as
+    many entries as its top-k has values above 1e-5, so the cached set is
+    the top-k up to ties at the k-th value."""
+    from multimodal_sae_tpu_torch.sae import pre_acts
+
+    B, S1 = h.shape[0], h.shape[1] - 1
+    latents = pre_acts(sae.params, h[:, 1:].reshape(-1, h.shape[-1]))
+    top = torch.topk(latents, sae.cfg.k, dim=-1).values
+    sel = (locs[:, 0] >= row0) & (locs[:, 0] < row0 + B)
+    loc = torch.from_numpy(locs[sel]).to(h.device)
+    act = torch.from_numpy(acts[sel]).to(h.device)
+    tok = (loc[:, 0] - row0) * S1 + loc[:, 1]
+    if not torch.equal(latents[tok, loc[:, 2]], act):
+        raise AssertionError("a cached activation differs from its recomputed latent")
+    if bool((act < top[tok, -1]).any()):
+        raise AssertionError("a cached entry lies below its token's k-th value")
+    if torch.unique(tok * sae.W_enc.shape[1] + loc[:, 2]).numel() != len(tok):
+        raise AssertionError("a (token, feature) pair is cached twice")
+    if not torch.equal(torch.bincount(tok, minlength=B * S1), (top > 1e-5).sum(-1)):
+        raise AssertionError("a token's cached entries differ in number from its top-k above 1e-5")
+
+
+def phase_image_cache_path(dev, card: str) -> dict:
+    """The image cache at llama3-llava-next-8b's widths (random bf16 weights:
+    the CLIP-L/336 tower, the projector and LLaMA-3-8B's text widths cut to
+    the 25 layers model.layers.24 reads, flash attention) and the released
+    SAE's width (131,072 latents, k=256, fp32), through `FeatureImageCache`
+    as the cache_image CLI drives it, on prepared batches."""
+    from multimodal_sae_tpu_torch.config import SaeConfig
+    from multimodal_sae_tpu_torch.device import setup
+    from multimodal_sae_tpu_torch.features import FeatureImageCache
+    from multimodal_sae_tpu_torch.interp_utils import load_saes
+    from multimodal_sae_tpu_torch.models.llama import LlamaConfig
+    from multimodal_sae_tpu_torch.models.llava_next import LlavaNextConfig, LlavaNextModel
+    from multimodal_sae_tpu_torch.ops import sort_pairs_by_index, top_k
+    from multimodal_sae_tpu_torch.sae import Sae, pre_acts
+
+    setup(dev)
+    hook, n_uniform, batch_size, n_splits = "model.layers.24", 4, 4, 128
+    seconds = {}
+    t0 = time.perf_counter()
+    # The placeholder id 128,256 must index the embedding table.
+    cfg = LlavaNextConfig(text_config=LlamaConfig(vocab_size=128257, num_hidden_layers=25, flash_attention=True))
+    model = LlavaNextModel.random(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    seconds["init_subject"] = time.perf_counter() - t0
+
+    rng = np.random.default_rng(0)
+    batches = [_image_batch(cfg, [UNIFORM_HW] * batch_size, rng) for _ in range(n_uniform)]
+    batches.append(_image_batch(cfg, MIXED_HW, rng))
+    lengths = [tuple(int(n) for n in b["attention_mask"].sum(1)) for b in batches]
+    if lengths != [(MIXED_LENGTHS[0],) * batch_size] * n_uniform + [MIXED_LENGTHS]:
+        raise AssertionError(f"placeholder expansion gave row lengths {lengths}")
+    n_images = sum(len(b["image_sizes"]) for b in batches)
+    n_tokens = sum(sum(row) for row in lengths)
+    positions = sum(b["input_ids"].size for b in batches)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        t0 = time.perf_counter()
+        Sae(4096, SaeConfig(num_latents=131072, k=256), decoder=False, seed=0, device=dev) \
+            .save_to_disk(os.path.join(tmp, "saes", hook))
+        saes = load_saes(os.path.join(tmp, "saes"), device=dev)
+        sae = saes[hook]
+        torch.cuda.synchronize()
+        seconds["init_sae_save_load"] = time.perf_counter() - t0
+
+        # Warm-up (cuBLAS handles, allocator) outside the counted run.
+        t0 = time.perf_counter()
+        h = model.capture(batches[0], [hook])[hook]
+        top_k(pre_acts(sae.params, h[:, 1:].reshape(-1, h.shape[-1])), sae.cfg.k, assume_finite=True)
+        torch.cuda.synchronize()
+        seconds["warmup"] = time.perf_counter() - t0
+        del h
+
+        # The counted run keeps nothing and counts nothing on the host: the
+        # checks below capture each batch again.
+        save_dir = os.path.join(tmp, "cache")
+        fc = FeatureImageCache(lambda batch: model.capture(batch, [hook]), saes, batch_size=batch_size)
+        fc.enable_streaming(save_dir, n_splits=n_splits)
+        torch.cuda.reset_peak_memory_stats()
+        gc.collect()
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        fc.run(positions, iter(batches), progress=False)
+        torch.cuda.synchronize()
+        seconds["run"] = time.perf_counter() - t0
+        launches = kernel_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        expected = {"block_max": 2 * len(batches), "flash_attention": 25 * len(batches),
+                    "flash_attention_bwd_delta": 0, "flash_attention_bwd_dkdv": 0,
+                    "flash_attention_bwd_dq": 0, "gather_rows": 0, "splice_decode": 0, "decode_dvals": 0}
+        if launches != expected:
+            raise AssertionError(f"kernel launches {launches} over {len(batches)} batches, expected {expected}")
+        t0 = time.perf_counter()
+        fc.save_splits(n_splits, save_dir)
+        fc.concate_safetensors(n_splits, save_dir)
+        seconds["save_and_merge"] = time.perf_counter() - t0
+
+        locs, acts = check_splits(os.path.join(save_dir, hook), n_splits, 131072)
+        n_entries = len(acts)
+        rows = sum(len(b["image_sizes"]) for b in batches)
+        if not ((locs[:, 0] < rows).all() and set(np.unique(locs[:, 0])) == set(range(rows))):
+            raise AssertionError("merged rows out of range")
+        # Every batch captured again (the forward is deterministic: the cached
+        # activations must equal its latents bit for bit); the per-token
+        # counts over every row also hold the splits' total.
+        t0 = time.perf_counter()
+        row0 = 0
+        for batch in batches:
+            h = model.capture(batch, [hook])[hook]
+            check_cached_topk(locs, acts, h, row0, sae)
+            row0 += h.shape[0]
+        seconds["check_topk"] = time.perf_counter() - t0
+        h_mixed = h
+        del locs, acts
+
+    # Each image of the mixed batch alone, a batch of 1 without a mask.
+    mixed = batches[-1]
+    alone = []
+    for i, (hw, n) in enumerate(zip(MIXED_HW, MIXED_LENGTHS)):
+        single = {"input_ids": mixed["input_ids"][i : i + 1, :n], "attention_mask": mixed["attention_mask"][i : i + 1, :n],
+                  "pixel_values": [mixed["pixel_values"][i]], "image_sizes": [hw]}
+        h1 = model.capture(single, [hook])[hook][0]
+        ref = h_mixed[i, :n]
+        err = (h1.float() - ref.float()).norm(dim=-1) / ref.float().norm(dim=-1)
+        line = {"size": list(hw), "tokens": n, "equal_bits": _bits_equal(h1, ref),
+                "max_row_l2_rel": err.max().item(), "max_abs_err": (h1.float() - ref.float()).abs().max().item()}
+        if not line["equal_bits"]:
+            raise AssertionError(f"image {hw} alone differs from its row of the mixed batch: {line}")
+        alone.append(line)
+    del h_mixed
+
+    # Batch 0 again, stage by stage (CUDA events).
+    marks = StageMarks()
+    embed, pack = model._embed_multimodal, model._project_pack_group
+
+    def timed_pack(*args):
+        marks("pixels_to_device")
+        out = pack(*args)
+        marks("tower_projector_pack")
+        return out
+
+    def timed_embed(batch):
+        out = embed(batch)
+        marks("placeholder_scatter")
+        return out
+
+    model._project_pack_group, model._embed_multimodal = timed_pack, timed_embed
+    h = model.capture(batches[0], [hook])[hook]
+    marks("subject_forward")
+    latents = pre_acts(sae.params, h[:, 1:].contiguous().reshape(-1, h.shape[-1]))
+    marks("encode")
+    vals, idx = top_k(latents, sae.cfg.k, assume_finite=True)
+    sort_pairs_by_index(idx, vals)
+    marks("top_k")
+    stage_ms = marks.ms()
+    del model._project_pack_group, model._embed_multimodal, h, latents, vals, idx
+
+    emit({
+        "phase": "image_cache_path",
+        "subject": "llama3-llava-next-8b widths: CLIP-L/336 tower, projector, LLaMA-3-8B text cut to 25 "
+                   "layers, bf16, flash attention",
+        "sae": "4096 -> 131072 latents, k=256, fp32", "hookpoint": hook,
+        "batches": [b["image_sizes"] for b in batches], "row_lengths": lengths,
+        "images": n_images, "tokens": n_tokens, "positions_cached": positions - len(batches) * batch_size,
+        # Five batches, a window of seconds: smoke readings, not the cache's
+        # throughput or memory, until a benchmark times a longer run.
+        "smoke_images_per_s": n_images / seconds["run"], "smoke_tokens_per_s": n_tokens / seconds["run"],
+        "smoke_peak_gb": peak_gb, "seconds": seconds, "stage_ms_batch0": stage_ms, "launches": launches,
+        "entries": n_entries, "n_splits": n_splits, "alone_vs_mixed": alone, "card": card,
+    })
+    del model, saes, sae
+    return {"launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card", file=sys.stderr)
@@ -1510,7 +1832,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train = phase_train_path(dev, card)
-    runs = (cache["launches"], attribution["launches"], train["launches"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    image = phase_image_cache_path(dev, card)
+    runs = (cache["launches"], attribution["launches"], train["launches"], image["launches"])
     total = {name: sum(run[name] for run in runs) for name in runs[0]}
     k2, splice, dvals = attribution["k2"], attribution["splice"], train["dvals"]
     bwd_launches = {part: total[f"flash_attention_bwd_{part}"] for part in ("delta", "dkdv", "dq")}
@@ -1520,13 +1845,14 @@ def main() -> int:
          "replaces": "multimodal_sae_tpu/ops/pallas_topk.py:48",
          "launches": total["block_max"], "max_abs_err": k1["max_abs_err"],
          "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
-         "bound_by": "bytes", "library_ms": k1["library_ms"]},
+         "bound_by": "bytes", "library_ms": k1["library_ms"], "image_step": k1["image_step"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "multimodal_sae_tpu_torch/csrc/flash_attention.cu",
          "replaces": "multimodal_sae_tpu/models/llama.py:341",
          "launches": total["flash_attention"], "max_abs_err": k3["max_abs_err"],
          "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
-         "bound_by": k3["bound_by"], "library_ms": k3["library_ms"]},
+         "bound_by": k3["bound_by"], "library_ms": k3["library_ms"], "image_shapes": k3["image_shapes"],
+         "right_pad_edges_max_abs_err": k3["right_pad_edges_max_abs_err"]},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "multimodal_sae_tpu_torch/csrc/flash_attention_bwd.cu",
          "replaces": "multimodal_sae_tpu/models/llama.py:341 (jax flash_attention.py:1121 dkv, :1456 dq)",

@@ -8,7 +8,8 @@ packages hold `W_enc (d_in, L)`, `b_enc`, `W_dec (L, d_in)`, `b_dec`, so only
 the array type changes.  Optimizer state: the JAX trainer saves its optax
 state as `leaf_{i}` arrays in `jax.tree_util.tree_flatten` order; the port's
 states (ops/adam.py `AdamState`, ops/adam8bit.py `ScaleByAdam8bitState`)
-flatten in the same order, so the arrays cross one for one.
+flatten in the same order, so the arrays cross one for one.  CLIP and
+LLaVA-NeXT: matrices are (in, out) there and (out, in) here, as for LLaMA.
 """
 
 from __future__ import annotations
@@ -97,6 +98,69 @@ def llama_params_to_jax(params: Mapping) -> dict:
     if "lm_head" in params:
         out["lm_head"] = np.ascontiguousarray(tensor_to_numpy(params["lm_head"]).T)
     return out
+
+
+CLIP_MATRICES = ("q_proj", "k_proj", "v_proj", "out_proj", "fc1", "fc2", "patch_embedding")
+"""CLIP matrices, (in, out) in the JAX package and (out, in) here; the
+patch embedding is (3·p·p, D) there."""
+
+PROJECTOR_MATRICES = ("linear_1", "linear_2")
+
+
+def clip_params_from_jax(params: Mapping, device: DeviceLike = None) -> dict:
+    """A JAX CLIP tower tree -> the port's, matrices transposed to (out, in)."""
+
+    def convert(name, a):
+        a = np.asarray(a)
+        return tensor_from_numpy(a.T if name in CLIP_MATRICES else a, device)
+
+    out = {name: convert(name, a) for name, a in params.items() if name != "layers"}
+    out["layers"] = [{name: convert(name, a) for name, a in layer.items()} for layer in params["layers"]]
+    return out
+
+
+def clip_params_to_jax(params: Mapping) -> dict:
+    """The port's CLIP tower tree -> numpy arrays in the JAX package's layout."""
+
+    def convert(name, t):
+        a = tensor_to_numpy(t)
+        return np.ascontiguousarray(a.T) if name in CLIP_MATRICES else a
+
+    out = {name: convert(name, t) for name, t in params.items() if name != "layers"}
+    out["layers"] = [{name: convert(name, t) for name, t in layer.items()} for layer in params["layers"]]
+    return out
+
+
+def llava_params_from_jax(params: Mapping, device: DeviceLike = None) -> dict:
+    """A JAX LLaVA-NeXT tree (`LlavaNextModel.params`, its language model
+    stacked or not) -> the port's: tower, projector, `image_newline` and
+    language model."""
+    return {
+        "vision_tower": clip_params_from_jax(params["vision_tower"], device),
+        "projector": {
+            name: tensor_from_numpy(np.asarray(a).T if name in PROJECTOR_MATRICES else a, device)
+            for name, a in params["projector"].items()
+        },
+        "image_newline": tensor_from_numpy(params["image_newline"], device),
+        "language_model": llama_params_from_jax(params["language_model"], device),
+    }
+
+
+def llava_params_to_jax(params: Mapping) -> dict:
+    """The port's LLaVA-NeXT tree -> numpy arrays in the JAX package's
+    layout (the language model per layer, as `llava_params_from_state_dict`
+    returns it)."""
+
+    def projector(name, t):
+        a = tensor_to_numpy(t)
+        return np.ascontiguousarray(a.T) if name in PROJECTOR_MATRICES else a
+
+    return {
+        "vision_tower": clip_params_to_jax(params["vision_tower"]),
+        "projector": {name: projector(name, t) for name, t in params["projector"].items()},
+        "image_newline": tensor_to_numpy(params["image_newline"]),
+        "language_model": llama_params_to_jax(params["language_model"]),
+    }
 
 
 def opt_state_from_jax(flat: Mapping[str, np.ndarray], like: NamedTuple) -> NamedTuple:

@@ -1,3 +1,3 @@
-from .cache import Cache, FeatureCache, topk_latents_step
+from .cache import Cache, FeatureCache, FeatureImageCache, topk_latents_step
 
-__all__ = ["Cache", "FeatureCache", "topk_latents_step"]
+__all__ = ["Cache", "FeatureCache", "FeatureImageCache", "topk_latents_step"]

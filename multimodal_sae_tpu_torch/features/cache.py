@@ -6,7 +6,8 @@ feature index, so the host-side COO stream comes out in row-major (batch,
 seq, feature) order, and only (B, S, k) elements cross to the host.  The
 run loop overlaps the two: it dispatches batch N on the current stream
 (its results copied into pinned host memory behind a CUDA event), then
-extracts batch N-1 on the host while N runs.
+extracts batch N-1 on the host while N runs.  `FeatureImageCache` runs the
+same loop on LLaVA-NeXT captures with each row's BOS position dropped.
 
 On-disk format, byte-equal to the JAX package's:
 `{save_dir}/{module}/Rank{r}_{start}_{end}.safetensors` shards merged into
@@ -226,15 +227,20 @@ class FeatureCache:
         self._stream_rank = rank
         self._stream_marks = {}
 
-    def _device_step(self, batch: dict) -> dict:
+    def _device_step(self, batch: dict, skip_bos: bool = False) -> dict:
         """Dispatch one batch's device work (capture + per-hookpoint top-k)
         and the copies of its results to pinned host memory, without waiting
-        for them: {module: (vals, idx, event or None)}."""
+        for them: {module: (vals, idx, event or None)}.  `skip_bos` drops
+        each row's first position before the encoder (the image cache)."""
         hiddens = self.capture_fn(batch)
         out = {}
         for module_path, h in hiddens.items():
             if module_path not in self.submodule_dict:
                 continue
+            if skip_bos:
+                # One explicit copy of the strided view; the encoder's
+                # reshape then takes it as it is.
+                h = h[:, 1:, :].contiguous()
             sae = self.submodule_dict[module_path]
             vals, idx = topk_latents_step(sae.params, h, sae.cfg)
             vals = vals.to(_TORCH_DTYPE[self.activation_dtype])
@@ -295,11 +301,12 @@ class FeatureCache:
                 module_path, min(expected, cap), act_dtype=self.activation_dtype
             )
 
-    def run(self, n_tokens: int, tokens, progress: bool = True):
+    def run(self, n_tokens: int, tokens, progress: bool = True, skip_bos: bool = False):
         """Cache every full batch of `tokens` (a sequence of {"input_ids": ...}
         rows or an iterator of prepared batches).  `n_tokens` is not a
         budget: like the reference, the whole dataset is cached; it sizes
-        the arenas.  `progress` shows a tqdm bar where tqdm is installed."""
+        the arenas.  `progress` shows a tqdm bar where tqdm is installed.
+        `skip_bos` drops each row's first position before encoding."""
         # The fp32 encoder runs with TF32 off, as the JAX side runs it at
         # HIGHEST: TF32 keeps ~3 digits and would move top-k boundaries.
         set_precision()
@@ -314,7 +321,7 @@ class FeatureCache:
         pending = None
         try:
             for batch_number, batch in enumerate(iterator):
-                dev = self._device_step(batch)
+                dev = self._device_step(batch, skip_bos)
                 if pending is not None:
                     self._host_step(*pending)
                 pending = (dev, batch_number, _batch_rows(batch))
@@ -427,9 +434,27 @@ class FeatureCache:
                 write_index(split_path, merged_locations[:, 2])
 
 
+class FeatureImageCache(FeatureCache):
+    """Image-input caching (reference cache.py:312-429): the capture_fn runs
+    the multimodal forward on `<image>`-prompted inputs, and each row's
+    leading BOS position is dropped before encoding (reference
+    cache.py:402-409)."""
+
+    def run(self, n_tokens: int, tokens, progress: bool = True, **kw):
+        if kw:
+            raise TypeError(
+                f"FeatureImageCache.run got unexpected kwargs {sorted(kw)}; the image "
+                "cache always drops the BOS position (reference cache.py:402-409)"
+            )
+        super().run(n_tokens, tokens, progress=progress, skip_bos=True)
+
+
 def _batch_rows(batch: dict) -> int:
     """Row count of a prepared batch (every collated key shares the batch axis)."""
-    return len(batch["input_ids"] if "input_ids" in batch else next(iter(batch.values())))
+    for key in ("input_ids", "image", "images", "pixel_values"):
+        if key in batch:
+            return len(batch[key])
+    return len(next(iter(batch.values())))
 
 
 def _batched(items, batch_size: int):

@@ -1,7 +1,7 @@
-"""Launch-script plumbing of the cache CLI (multimodal_sae_tpu/launch/utils.py):
+"""Launch-script plumbing of the cache CLIs (multimodal_sae_tpu/launch/utils.py):
 subject loading from a local HF checkpoint, datasets, hookpoint checks.
 `transformers` and `datasets` are imported only inside the helpers that need
-a tokenizer or an HF dataset."""
+a tokenizer, a processor or an HF dataset."""
 
 from __future__ import annotations
 
@@ -39,36 +39,53 @@ def load_subject_model(
     hf_token: Optional[str] = None,
     truncate_layers: int = 0,
     device: DeviceLike = None,
-) -> Tuple[object, None, object]:
-    """A plain LLaMA subject from a local HF checkpoint directory:
-    (model, processor None, tokenizer).  `truncate_layers` > 0 keeps only
-    the first N layers resident; hookpoints below N are unchanged."""
+) -> Tuple[object, Optional[object], object]:
+    """The frozen subject from a local HF checkpoint directory: LLaVA-NeXT
+    when the checkpoint is one (config.json's model_type, else the name),
+    plain LLaMA otherwise.  Returns (model, processor or None, tokenizer).
+    `truncate_layers` > 0 keeps only the first N language-model layers, whose
+    weights alone reach the device; hookpoints below N are unchanged."""
     from transformers import AutoTokenizer
 
-    from ..models.hf_loader import load_llama
-    from ..models.llama import LlamaModel
-
     if _is_llava_checkpoint(model_name_or_path):
-        raise NotImplementedError(
-            "LLaVA-NeXT subjects are not ported yet: ROADMAP.md §1, "
-            "LLaVA-NeXT, CLIP and the image cache"
+        from transformers import LlavaNextProcessor
+
+        from ..models.llava_next import LlavaNextModel, load_llava_next
+
+        params, cfg = load_llava_next(
+            model_name_or_path, dtype=dtype, device=device, truncate_layers=truncate_layers
         )
-    params, cfg = load_llama(
-        model_name_or_path, dtype=dtype, device=device, truncate_layers=truncate_layers
-    )
-    cfg = dataclasses.replace(cfg, flash_attention=flash_attention or cfg.flash_attention)
+        text_cfg = dataclasses.replace(
+            cfg.text_config, flash_attention=flash_attention or cfg.text_config.flash_attention
+        )
+        model = LlavaNextModel(params, dataclasses.replace(cfg, text_config=text_cfg))
+        processor = LlavaNextProcessor.from_pretrained(model_name_or_path, token=hf_token)
+    else:
+        from ..models.hf_loader import load_llama
+        from ..models.llama import LlamaModel
+
+        params, cfg = load_llama(
+            model_name_or_path, dtype=dtype, device=device, truncate_layers=truncate_layers
+        )
+        cfg = dataclasses.replace(cfg, flash_attention=flash_attention or cfg.flash_attention)
+        model, processor = LlamaModel(params, cfg), None
     tokenizer = AutoTokenizer.from_pretrained(model_name_or_path, token=hf_token)
-    return LlamaModel(params, cfg), None, tokenizer
+    return model, processor, tokenizer
+
+
+def refuse_unported(cfg) -> None:
+    """Raise on a CLI option whose path a later slice ports."""
+    for name, item in _UNPORTED.items():
+        value = getattr(cfg, name, False)
+        if value is True or (not isinstance(value, bool) and value > 1):
+            raise NotImplementedError(f"--{name} is not ported yet: ROADMAP.md {item}")
 
 
 def load_subject_or_synthetic(cfg, device: DeviceLike = None):
     """`synthetic://dM,L,V` builds the synthetic subject; anything else is a
     local checkpoint through `load_subject_model`.  Refuses the options
     whose paths later slices port."""
-    for name, item in _UNPORTED.items():
-        value = getattr(cfg, name, False)
-        if value is True or (not isinstance(value, bool) and value > 1):
-            raise NotImplementedError(f"--{name} is not ported yet: ROADMAP.md {item}")
+    refuse_unported(cfg)
     if cfg.model.startswith("synthetic://"):
         from ..models import SyntheticActivationSource
 

@@ -42,7 +42,8 @@ def llama_params_from_state_dict(
 ) -> dict:
     """Map HF LlamaForCausalLM / LlamaModel keys to the port's tree.
 
-    `prefix` is "model." for LlamaForCausalLM and "" for a bare LlamaModel.
+    `prefix` is "model." for LlamaForCausalLM, "" for a bare LlamaModel and
+    "language_model.model." (or a post-4.52 form) inside LLaVA-NeXT.
     Layers past `cfg.num_hidden_layers` stay off the device.  An untied
     checkpoint's `lm_head.weight` is loaded as `lm_head`; a missing one is
     an error, as in the JAX package: falling back to the embedding would
@@ -72,7 +73,12 @@ def llama_params_from_state_dict(
         "norm": get(f"{prefix}norm.weight"),
     }
     if not cfg.tie_word_embeddings:
-        head = next((key for key in ("lm_head.weight", f"{prefix}lm_head.weight") if key in sd), None)
+        # The head lives beside the decoder: "language_model.lm_head.weight"
+        # for the prefix "language_model.model." of a LLaVA checkpoint.
+        parts = prefix.rstrip(".").split(".") if prefix else []
+        sibling = ".".join(parts[:-1]) + "." if len(parts) > 1 else ""
+        candidates = ("lm_head.weight", sibling + "lm_head.weight", f"{prefix}lm_head.weight")
+        head = next((key for key in candidates if key in sd), None)
         if head is None:
             raise KeyError(
                 "untied checkpoint (tie_word_embeddings=false) but no lm_head.weight; "
@@ -80,6 +86,18 @@ def llama_params_from_state_dict(
             )
         params["lm_head"] = get(head)
     return params
+
+
+def truncated(cfg: LlamaConfig, truncate_layers: int) -> LlamaConfig:
+    """`cfg` cut to its first `truncate_layers` layers (0 keeps them all)."""
+    if not truncate_layers:
+        return cfg
+    if truncate_layers > cfg.num_hidden_layers:
+        raise ValueError(
+            f"--truncate_layers {truncate_layers} exceeds the subject's "
+            f"{cfg.num_hidden_layers} layers"
+        )
+    return dataclasses.replace(cfg, num_hidden_layers=truncate_layers)
 
 
 def load_llama(
@@ -91,14 +109,7 @@ def load_llama(
     """Local HF LLaMA checkpoint dir -> (params, cfg).  `truncate_layers`
     > 0 keeps only the first N layers, whose weights alone reach the
     device, and sets the config's depth to N."""
-    cfg = LlamaConfig.from_hf(load_hf_config(path))
-    if truncate_layers:
-        if truncate_layers > cfg.num_hidden_layers:
-            raise ValueError(
-                f"--truncate_layers {truncate_layers} exceeds the subject's "
-                f"{cfg.num_hidden_layers} layers"
-            )
-        cfg = dataclasses.replace(cfg, num_hidden_layers=truncate_layers)
+    cfg = truncated(LlamaConfig.from_hf(load_hf_config(path)), truncate_layers)
     sd = load_hf_state_dict(path)
     prefix = "model." if any(k.startswith("model.") for k in sd) else ""
     params = llama_params_from_state_dict(sd, cfg, resolve_device(device), dtype, prefix)

@@ -334,6 +334,16 @@ def pad_text_rows(rows) -> dict:
     return {"input_ids": ids, "attention_mask": mask}
 
 
+def batch_mask(batch: dict, device: torch.device) -> Optional[torch.Tensor]:
+    """The batch's attention mask on `device`, or None when it has none or
+    masks nothing (all ones), as the JAX side drops it."""
+    amask = batch.get("attention_mask")
+    if amask is None:
+        return None
+    amask = np.asarray(amask)
+    return None if amask.all() else torch.as_tensor(amask, device=device)
+
+
 def init_llama_params(
     cfg: LlamaConfig,
     generator: torch.Generator,
@@ -406,17 +416,9 @@ class LlamaModel:
     def resolve_widths(self, hookpoints: List[str]) -> Dict[str, int]:
         return {h: self.cfg.hidden_size for h in hookpoints}
 
-    def _mask(self, batch: dict) -> Optional[torch.Tensor]:
-        amask = batch.get("attention_mask")
-        if amask is None:
-            return None
-        amask = np.asarray(amask)
-        # An all-ones mask masks nothing: drop it, as the JAX side does.
-        return None if amask.all() else torch.as_tensor(amask, device=self.device)
-
     def _ids_and_mask(self, batch: dict):
         ids = torch.as_tensor(np.asarray(batch["input_ids"]), dtype=torch.long).to(self.device)
-        return ids, self._mask(batch)
+        return ids, batch_mask(batch, self.device)
 
     @torch.no_grad()
     def capture(self, batch: dict, hookpoints: List[str]) -> Dict[str, torch.Tensor]:
@@ -469,5 +471,5 @@ class LlamaModel:
         logit-diff metric reads nothing else."""
         return forward_from_layer_above(
             self.params, self.cfg, hidden, hookpoint_layer_idx(hookpoint),
-            attention_mask=self._mask(batch), last_logit_only=last_logit_only,
+            attention_mask=batch_mask(batch, self.device), last_logit_only=last_logit_only,
         )

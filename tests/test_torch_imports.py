@@ -23,6 +23,11 @@ ATTRIBUTION_MODULES = (
     "multimodal_sae_tpu_torch.features.patching.attribution",
     "multimodal_sae_tpu_torch.features.patching.utils",
 )
+IMAGE_MODULES = (
+    "multimodal_sae_tpu_torch.launch.cache.cache_image",
+    "multimodal_sae_tpu_torch.models.clip_vit",
+    "multimodal_sae_tpu_torch.models.llava_next",
+)
 TRAIN_MODULES = (
     "multimodal_sae_tpu_torch.__main__",
     "multimodal_sae_tpu_torch.ops.adam",
@@ -55,7 +60,7 @@ def test_importing_every_module_leaves_jax_unloaded():
         "import multimodal_sae_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        f"assert set({ATTRIBUTION_MODULES + TRAIN_MODULES!r}) <= set(names)\n"
+        f"assert set({ATTRIBUTION_MODULES + IMAGE_MODULES + TRAIN_MODULES!r}) <= set(names)\n"
         "import chip_smoke\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert len(names) > 20 and not bad, (len(names), bad)\n"
@@ -78,7 +83,11 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
     from multimodal_sae_tpu_torch.features.patching import Attribution
     from multimodal_sae_tpu_torch.interp_utils import load_saes
     from multimodal_sae_tpu_torch.launch.cache import cache as cli
-    from multimodal_sae_tpu_torch.models import LlamaConfig, LlamaModel, SyntheticActivationSource
+    from multimodal_sae_tpu_torch.launch.cache import cache_image as image_cli
+    from multimodal_sae_tpu_torch.launch.utils import load_subject_model
+    from multimodal_sae_tpu_torch.models import LlamaConfig, LlamaModel, LlavaNextConfig, LlavaNextModel, SyntheticActivationSource
+    from multimodal_sae_tpu_torch.models.clip_vit import ClipVisionConfig
+    from multimodal_sae_tpu_torch.models.llava_next import load_llava_next
     from multimodal_sae_tpu_torch.sae import Sae
     from multimodal_sae_tpu_torch.train import SaeTrainer
 
@@ -90,6 +99,11 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
         lambda: Sae.load_from_disk(tmp_path / "layers.0"),
         lambda: load_saes(str(tmp_path)),
         lambda: LlamaModel.random(tiny),
+        lambda: LlavaNextModel.random(LlavaNextConfig(text_config=tiny, vision_config=ClipVisionConfig(
+            hidden_size=8, intermediate_size=8, num_hidden_layers=1, num_attention_heads=2, image_size=4, patch_size=2))),
+        lambda: load_llava_next(str(tmp_path)),
+        lambda: load_subject_model(str(tmp_path / "llava")),
+        lambda: image_cli.main(CacheConfig(model=str(tmp_path / "llava"), sae_path=str(tmp_path))),
         lambda: SyntheticActivationSource(),
         lambda: cli.main(CacheConfig(model="synthetic://4,1,8", sae_path=str(tmp_path))),
         lambda: Attribution(None, None, str(tmp_path), str(tmp_path / "probe.json"), selected_sae="layers.0"),
