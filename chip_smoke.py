@@ -38,6 +38,17 @@ Phases; any failure raises and ends the run with a non-zero exit code:
    `FeatureCache` with streaming splits over 4 batches of 8 x 2,048 tokens,
    then `save_splits` and `concate_safetensors`; checks the launch counts,
    the merged entries, the feature ranges and one batch's top-k;
+   loader_path, in the cache path's directory, on its merged splits: a
+   `FeatureDataset` filtered to 2,000 features drawn with a seed
+   from those the cache holds (some under `min_examples`, skipped), loaded
+   with `pool_max_activation_windows` on the cache's token rows and
+   `sample`, sequentially and on LOADER_WORKERS threads, through the
+   merge's `.featidx` sidecars; then 8 splits unfiltered, their sidecars
+   removed, on the scan path (which heals them) and then through the
+   sidecars; every record against an independent numpy reconstruction from
+   the raw split (tokens and activations bit for bit), threaded equal to
+   sequential, scan equal to sidecar, no kernel launched; smoke readings of
+   seconds, records/s, entries/s and the host CPU's share per build;
 6. gather_rows (K2), inside the attribution phase after its counted run,
    on the subject's clean top-k (2,432 tokens x 256 rows of a
    131,072 x 4,096 fp32 decoder): copy mode bit-exact against
@@ -62,6 +73,14 @@ Phases; any failure raises and ends the run with a non-zero exit code:
    with exact zeros at the pad positions and the fast path against the
    general path for 2 features; one chunk is timed stage by stage
    (CUDA events) and once under torch.profiler;
+   stats_path, after the attribution phase, on that subject's LM head and that SAE's
+   decoder: `get_neighbors` for the loader's 2,000 features at k = 10, `logits` for
+   the loader's records (a stub tokenizer), `PcaReducer.fit_sae_list` at
+   the full decoder, the thin SVD of the decoder timed beside it; 16 features recomputed in float64 on the card
+   (neighbour and top-token orders equal but for near-ties, cosines within
+   STATS_ATOL), the two components orthonormal and their variance equal to
+   the covariance's top two eigenvalues (float64); ms and peak memory per
+   call; no kernel launched;
 8. train_path: `SaeTrainer` at the README's command shape (131,072
    latents, k = 256, fp32, batch 8 x 2,048, grad_acc_steps 4,
    micro_acc_steps TRAIN_MICRO, lr_warmup_steps 0) on the 25-layer random
@@ -106,6 +125,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -167,6 +187,19 @@ FAST_SLOW_REL = 1e-4
 # forward(fast=False) against the fast path on one full-width chunk: fvu
 # within 1e-4 relative and each gradient within relative L2 1e-4 (the same
 # selection, decoded and differentiated by other fp32 sums).
+STATS_ATOL = 1e-5
+# Neighbour cosines against float64 on the card: |fp32 - float64| <= 1e-5
+# (each is an fp32 dot of two unit rows of d = 4,096, within about
+# d * 2^-24 = 2.4e-4 in the worst case and ~1e-6 in practice).
+STATS_NEAR_TIE = 2e-5
+# A neighbour or top token may differ from the float64 order only where the
+# two candidates' float64 values lie within 2e-5 (twice STATS_ATOL).
+PCA_ORTHO = 1e-5
+PCA_EV_REL = 1e-4
+# PCA's two components: orthonormal within 1e-5; the variance along each
+# (a float64 Rayleigh quotient of the decoder's covariance) within 1e-4
+# relative of the covariance's top two eigenvalues (float64 eigvalsh).
+LOADER_WORKERS = 4
 ATTRIBUTION_L2_REL = 1e-3
 # Fast against general attribution, ||fast - general|| <= 1e-3 * ||general||
 # per feature: the two select the same top-k in the same order, decode it
@@ -704,10 +737,12 @@ def check_splits(module_dir: str, n_splits: int, width: int) -> tuple:
     return locs, acts
 
 
-def phase_cache_path(dev, card: str) -> dict:
+def phase_cache_path(dev, card: str, work_dir: str) -> dict:
     """The cache path at LLaMA-3-8B width (random bf16 weights, depth cut to
     the 25 layers hookpoint layers.24 reads) and the released SAE's width
-    (131,072 latents, k=256, fp32), through the entry points a user calls."""
+    (131,072 latents, k=256, fp32), through the entry points a user calls.
+    Writes under `work_dir`, which the caller removes; returns the merged
+    cache's directory, hookpoint and token rows for the loader phase."""
     from multimodal_sae_tpu_torch.config import SaeConfig
     from multimodal_sae_tpu_torch.device import setup
     from multimodal_sae_tpu_torch.features import FeatureCache
@@ -730,53 +765,52 @@ def phase_cache_path(dev, card: str) -> dict:
     rows = [{"input_ids": rng.integers(0, cfg.vocab_size, size=ctx_len)}
             for _ in range(n_batches * batch_size)]
     batch0 = {"input_ids": np.stack([r["input_ids"] for r in rows[:batch_size]])}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        t0 = time.perf_counter()
-        Sae(4096, SaeConfig(num_latents=131072, k=256), decoder=False, seed=0, device=dev) \
-            .save_to_disk(os.path.join(tmp, "saes", hook))
-        saes = load_saes(os.path.join(tmp, "saes"), device=dev)
-        sae = saes[hook]
-        torch.cuda.synchronize()
-        seconds["init_sae_save_load"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Sae(4096, SaeConfig(num_latents=131072, k=256), decoder=False, seed=0, device=dev) \
+        .save_to_disk(os.path.join(work_dir, "saes", hook))
+    saes = load_saes(os.path.join(work_dir, "saes"), device=dev)
+    sae = saes[hook]
+    torch.cuda.synchronize()
+    seconds["init_sae_save_load"] = time.perf_counter() - t0
 
-        # Warm-up (cuBLAS handles, allocator) outside the counted run.
-        t0 = time.perf_counter()
-        h = model.capture(batch0, [hook])[hook]
-        top_k(pre_acts(sae.params, h.reshape(-1, h.shape[-1])), sae.cfg.k, assume_finite=True)
-        torch.cuda.synchronize()
-        seconds["warmup"] = time.perf_counter() - t0
-        del h
+    # Warm-up (cuBLAS handles, allocator) outside the counted run.
+    t0 = time.perf_counter()
+    h = model.capture(batch0, [hook])[hook]
+    top_k(pre_acts(sae.params, h.reshape(-1, h.shape[-1])), sae.cfg.k, assume_finite=True)
+    torch.cuda.synchronize()
+    seconds["warmup"] = time.perf_counter() - t0
+    del h
 
-        save_dir = os.path.join(tmp, "cache")
-        fc = CountingCache(lambda b: model.capture(b, [hook]), saes, batch_size=batch_size)
-        fc.enable_streaming(save_dir, n_splits=n_splits)
-        torch.cuda.reset_peak_memory_stats()
-        # Collect garbage before each timed run, so that no collection pass
-        # (a long one once the profiler's events are garbage) lands inside it.
-        gc.collect()
-        reset_kernel_counts()
-        t0 = time.perf_counter()
-        fc.run(ctx_len, rows, progress=False)
-        torch.cuda.synchronize()
-        seconds["run"] = time.perf_counter() - t0
-        launches = kernel_counts()
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        expected = {"block_max": 2 * n_batches, "flash_attention": 25 * n_batches,
-                    "flash_attention_bwd_delta": 0, "flash_attention_bwd_dkdv": 0,
-                    "flash_attention_bwd_dq": 0, "gather_rows": 0, "splice_decode": 0, "decode_dvals": 0}
-        if launches != expected:
-            raise AssertionError(f"kernel launches {launches} over {n_batches} batches, expected {expected}")
-        t0 = time.perf_counter()
-        fc.save_splits(n_splits, save_dir)
-        fc.concate_safetensors(n_splits, save_dir)
-        seconds["save_and_merge"] = time.perf_counter() - t0
+    save_dir = os.path.join(work_dir, "cache")
+    fc = CountingCache(lambda b: model.capture(b, [hook]), saes, batch_size=batch_size)
+    fc.enable_streaming(save_dir, n_splits=n_splits)
+    torch.cuda.reset_peak_memory_stats()
+    # Collect garbage before each timed run, so that no collection pass
+    # (a long one once the profiler's events are garbage) lands inside it.
+    gc.collect()
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    fc.run(ctx_len, rows, progress=False)
+    torch.cuda.synchronize()
+    seconds["run"] = time.perf_counter() - t0
+    launches = kernel_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expected = {"block_max": 2 * n_batches, "flash_attention": 25 * n_batches,
+                "flash_attention_bwd_delta": 0, "flash_attention_bwd_dkdv": 0,
+                "flash_attention_bwd_dq": 0, "gather_rows": 0, "splice_decode": 0, "decode_dvals": 0}
+    if launches != expected:
+        raise AssertionError(f"kernel launches {launches} over {n_batches} batches, expected {expected}")
+    t0 = time.perf_counter()
+    fc.save_splits(n_splits, save_dir)
+    fc.concate_safetensors(n_splits, save_dir)
+    seconds["save_and_merge"] = time.perf_counter() - t0
 
-        locs, acts = check_splits(os.path.join(save_dir, hook), n_splits, 131072)
-        n_entries = len(acts)
-        if n_entries != fc.above:
-            raise AssertionError(f"merged splits hold {n_entries} entries, top-k gave {fc.above} above 1e-5")
-        if not ((locs[:, 0] < n_batches * batch_size).all() and (locs[:, 1] < ctx_len).all()):
-            raise AssertionError("merged locations out of range")
+    locs, acts = check_splits(os.path.join(save_dir, hook), n_splits, 131072)
+    n_entries = len(acts)
+    if n_entries != fc.above:
+        raise AssertionError(f"merged splits hold {n_entries} entries, top-k gave {fc.above} above 1e-5")
+    if not ((locs[:, 0] < n_batches * batch_size).all() and (locs[:, 1] < ctx_len).all()):
+        raise AssertionError("merged locations out of range")
 
     # Batch 0 again, stage by stage: its top-k against torch.topk as sets.
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
@@ -803,7 +837,8 @@ def phase_cache_path(dev, card: str) -> dict:
         "launches": launches, "entries": n_entries, "n_splits": n_splits,
         "peak_gb": peak_gb, "card": card,
     })
-    return {"launches": launches}
+    return {"launches": launches, "cache_dir": save_dir, "hook": hook,
+            "tokens": np.stack([r["input_ids"] for r in rows])}
 
 
 def check_gather_rows(W: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor, chunk) -> dict:
@@ -1263,7 +1298,7 @@ def phase_attribution_path(dev, card: str) -> dict:
         "card": card,
     })
     return {"launches": {name: launches[name] + launches2[name] for name in launches}, "k2": k2,
-            "splice": splice}
+            "splice": splice, "model": model, "sae": sae}
 
 
 TRAIN_STAGES = ("capture", "encode", "top_k", "masked_decode", "losses", "backward", "clip", "apply", "bookkeeping")
@@ -1816,6 +1851,284 @@ def phase_image_cache_path(dev, card: str) -> dict:
     return {"launches": launches}
 
 
+def _record_key(record) -> tuple:
+    """A loader record as comparable bytes: tokens exactly, activations bit
+    for bit, the sampled `train`."""
+    def ex(examples):
+        return tuple((e.tokens.dtype.str, e.tokens.tobytes(), e.activations.dtype.str, e.activations.tobytes())
+                     for e in examples or ())
+
+    return record.feature.module_name, record.feature.feature_index, ex(record.examples), ex(record.train)
+
+
+def _timed_load(dataset, constructor, sampler, num_workers: int) -> tuple:
+    """(records, {wall_s, cpu_s, constructor_s, sampler_s}) of one collated
+    load; the constructor's and sampler's own seconds are summed only on a
+    sequential load (None on a threaded one)."""
+    spent = {"constructor_s": 0.0, "sampler_s": 0.0}
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                spent[name] += time.perf_counter() - t0
+
+        return call
+
+    if num_workers <= 1:
+        constructor, sampler = timed("constructor_s", constructor), timed("sampler_s", sampler)
+    else:
+        spent = {"constructor_s": None, "sampler_s": None}
+    t0, c0 = time.perf_counter(), time.process_time()
+    records = dataset.load(collate=True, constructor=constructor, sampler=sampler, num_workers=num_workers)
+    return records, {"wall_s": time.perf_counter() - t0, "cpu_s": time.process_time() - c0, **spent}
+
+
+def check_records(records, module_dir: str, edges: np.ndarray, tokens: np.ndarray, cfg, n_train: int) -> int:
+    """Every record against a numpy reconstruction from the raw split, read
+    whole (`load_file`, no mmap, no sidecar): the feature's entries by a
+    boolean mask in file order, scattered into the dense (rows, seq) batch,
+    cut into windows, ranked by their max with ties in window order, the
+    top `max_examples` nonzero ones.  Returns the entries checked."""
+    from multimodal_sae_tpu_torch.utils.safetensors_io import load_file
+
+    by_split: dict = {}
+    for r in records:
+        by_split.setdefault(int(np.searchsorted(edges, r.feature.feature_index, side="right")) - 1, []).append(r)
+    rows, seq = tokens.shape
+    tok_windows = tokens[:, : seq // cfg.example_ctx_len * cfg.example_ctx_len].reshape(-1, cfg.example_ctx_len)
+    checked = 0
+    for split, recs in by_split.items():
+        data = load_file(os.path.join(module_dir, f"{edges[split]}_{edges[split + 1] - 1}.safetensors"))
+        locs, acts = data["locations"].numpy(), data["activations"].numpy()
+        for r in recs:
+            mask = locs[:, 2] == r.feature.feature_index
+            checked += int(mask.sum())
+            dense = np.zeros((rows, seq), acts.dtype)
+            np.add.at(dense, (locs[mask, 0], locs[mask, 1]), acts[mask])
+            windows = dense[:, : tok_windows.size // rows].reshape(-1, cfg.example_ctx_len)
+            pools = windows.max(axis=1)
+            order = np.lexsort((np.arange(len(pools)), -pools))[: min(cfg.max_examples, int((pools != 0).sum()))]
+            want = tuple((tok_windows.dtype.str, tok_windows[i].tobytes(), windows.dtype.str, windows[i].tobytes())
+                         for i in order)
+            got = _record_key(r)
+            if got[2] != want:
+                raise AssertionError(f"record {r.feature} differs from its reconstruction from the raw split")
+            if got[3] != want[:n_train]:
+                raise AssertionError(f"record {r.feature}'s train is not its top {n_train} examples")
+    return checked
+
+
+def phase_loader_path(card: str, cache_dir: str, hook: str, tokens: np.ndarray) -> dict:
+    """Feature loading (`FeatureDataset`) over the 128 splits the cache path
+    merged, through the entry points a user calls: a filtered
+    build of 2,000 features drawn with a seed from those the cache holds
+    (`pool_max_activation_windows` on the cache's token rows, `sample`),
+    sequential and threaded; then 8 splits unfiltered, first on the scan
+    path (their sidecars removed; the load heals them), then through the
+    sidecars.  Host numpy only: no kernel of the port runs."""
+    from functools import partial
+
+    from multimodal_sae_tpu_torch.config import ExperimentConfig, FeatureConfig
+    from multimodal_sae_tpu_torch.features import FeatureDataset, loader, pool_max_activation_windows, sample
+    from multimodal_sae_tpu_torch.features.split_index import index_path, mmap_safetensors
+
+    width, n_splits, n_filter, n_unfiltered = 131072, 128, 2000, 8
+    module_dir = os.path.join(cache_dir, hook)
+    fcfg = FeatureConfig(width=width, n_splits=n_splits, example_ctx_len=64)
+    ecfg = ExperimentConfig()
+    edges = np.linspace(0, width, n_splits + 1).astype(np.int64)
+    counts = np.zeros(width, np.int64)
+    for start, end in zip(edges[:-1], edges[1:]):
+        feats = mmap_safetensors(os.path.join(module_dir, f"{start}_{end - 1}.safetensors"))["locations"][:, 2]
+        counts += np.bincount(feats, minlength=width)
+    held = np.flatnonzero(counts)
+    selected = np.sort(np.random.default_rng(7).choice(held, size=n_filter, replace=False))
+    kept = selected[counts[selected] >= fcfg.min_examples]
+    if not 0 < len(kept) < n_filter:
+        raise AssertionError(f"{len(kept)} of the {n_filter} drawn features reach min_examples; "
+                             "the draw must keep some and skip some")
+    load_kw = dict(constructor=partial(pool_max_activation_windows, tokens=tokens, cfg=fcfg),
+                   sampler=partial(sample, cfg=ecfg))
+    hits = {"sidecar": 0, "scan": 0}
+    hits_lock = threading.Lock()
+    read_index = loader.read_index
+
+    def counted_read_index(*args, **kw):
+        out = read_index(*args, **kw)
+        with hits_lock:
+            hits["scan" if out is None else "sidecar"] += 1
+        return out
+
+    loader.read_index = counted_read_index
+    builds = {}
+    gc.collect()
+    reset_kernel_counts()
+    try:
+        ds = FeatureDataset(cache_dir, fcfg, modules=[hook], features={hook: selected})
+        filtered, times = _timed_load(ds, num_workers=1, **load_kw)
+        builds["filtered_sequential"] = dict(buffers=len(ds), entries=int(counts[selected].sum()),
+                                             records=len(filtered), **times)
+        ds = FeatureDataset(cache_dir, fcfg, modules=[hook], features={hook: selected})
+        threaded, times = _timed_load(ds, num_workers=LOADER_WORKERS, **load_kw)
+        builds[f"filtered_{LOADER_WORKERS}_workers"] = dict(buffers=len(ds), entries=int(counts[selected].sum()),
+                                                            records=len(threaded), **times)
+        filtered_hits = dict(hits)
+        # Unfiltered: the first 8 splits, their merge-time sidecars removed.
+        for start, end in zip(edges[:n_unfiltered], edges[1 : n_unfiltered + 1]):
+            os.remove(index_path(os.path.join(module_dir, f"{start}_{end - 1}.safetensors")))
+        unfiltered = {}
+        for path in ("scan", "sidecar"):
+            ds = FeatureDataset(cache_dir, fcfg, modules=[hook])
+            ds.buffers = ds.buffers[:n_unfiltered]
+            before = dict(hits)
+            unfiltered[path], times = _timed_load(ds, num_workers=1, **load_kw)
+            if hits[path] - before[path] != n_unfiltered:
+                raise AssertionError(f"the unfiltered {path} build read {hits} (before: {before})")
+            builds[f"unfiltered_{path}"] = dict(buffers=n_unfiltered, entries=int(counts[: edges[n_unfiltered]].sum()),
+                                                records=len(unfiltered[path]), **times)
+    finally:
+        loader.read_index = read_index
+    launches = kernel_counts()
+    if any(launches.values()):
+        raise AssertionError(f"the loader launched kernels: {launches}")
+    n_buffers = builds["filtered_sequential"]["buffers"]
+    if filtered_hits != {"sidecar": 2 * n_buffers, "scan": 0}:
+        raise AssertionError(f"the filtered builds did not read through the merge's sidecars: {filtered_hits}")
+    keys = [_record_key(r) for r in filtered]
+    if [r.feature.feature_index for r in filtered] != kept.tolist():
+        raise AssertionError("the filtered build's records are not the drawn features that reach min_examples")
+    if [_record_key(r) for r in threaded] != keys:
+        raise AssertionError("the threaded load differs from the sequential one")
+    if [_record_key(r) for r in unfiltered["sidecar"]] != [_record_key(r) for r in unfiltered["scan"]]:
+        raise AssertionError("the sidecar path's records differ from the scan path's")
+    t0 = time.perf_counter()
+    checked = check_records(filtered, module_dir, edges, tokens, fcfg, ecfg.n_examples_train)
+    checked += check_records(unfiltered["scan"], module_dir, edges, tokens, fcfg, ecfg.n_examples_train)
+    check_s = time.perf_counter() - t0
+    for b in builds.values():
+        b.update(records_per_s=b["records"] / b["wall_s"], entries_per_s=b["entries"] / b["wall_s"],
+                 host_cpu_share=b["cpu_s"] / b["wall_s"])
+    emit({
+        "phase": "loader_path", "note": "smoke readings of one short run, not throughput",
+        "cache": f"{hook}, {n_splits} splits, {int(counts.sum())} entries, {len(held)} features held",
+        "filter": {"drawn": n_filter, "kept": len(kept), "skipped_under_min_examples": n_filter - len(kept)},
+        "min_examples": fcfg.min_examples, "example_ctx_len": fcfg.example_ctx_len, "builds": builds,
+        "records_checked_against_raw_splits": len(filtered) + len(unfiltered["scan"]),
+        "entries_checked": checked, "check_s": check_s, "threaded_equals_sequential": True,
+        "scan_equals_sidecar": True, "launches": launches, "card": card,
+    })
+    # The stats phase needs only each record's feature: drop the examples
+    # (about a million Python objects and their arrays) once checked.
+    for r in filtered:
+        r.examples = r.train = None
+    return {"launches": launches, "records": filtered, "selected": selected}
+
+
+class _StubTokenizer:
+    """Token ids as strings (the card's machine has no tokenizer library)."""
+
+    def batch_decode(self, ids):
+        return [str(int(np.asarray(i).ravel()[0])) for i in ids]
+
+
+def _near_tie_order(got_idx, ref: torch.Tensor, what: str) -> None:
+    """`got_idx` (rows, k) against the float64 values `ref` (rows, n): at
+    each rank the chosen candidate's value must be within STATS_NEAR_TIE of
+    the float64 order's value at that rank."""
+    got_idx = torch.as_tensor(np.asarray(got_idx), device=ref.device)
+    want = torch.sort(ref, dim=-1, descending=True, stable=True).values[:, : got_idx.shape[1]]
+    gap = (torch.gather(ref, 1, got_idx) - want).abs().max().item()
+    if not gap <= STATS_NEAR_TIE:
+        raise AssertionError(f"{what}: an index differs from the float64 order by {gap} (> {STATS_NEAR_TIE})")
+
+
+def phase_stats_path(dev, card: str, model, sae, records, selected) -> dict:
+    """Feature statistics and PCA on the card, on the attribution phase's
+    SAE decoder (131,072 x 4,096 fp32) and subject's LM head (128,256 x
+    4,096 bf16): `get_neighbors` for the loader's 2,000 drawn features at
+    k = 10, `logits` for the loader's records, `PcaReducer.fit_sae_list` at
+    the full decoder (the thin SVD timed beside it); each held against
+    float64 on the card."""
+    from multimodal_sae_tpu_torch.features import stats
+    from multimodal_sae_tpu_torch.features.dim_reduce import PcaReducer
+
+    hook = "layers.24"
+    W_dec, W_U = sae.params["W_dec"], model.params["lm_head"]
+    out, base_gb = {}, torch.cuda.memory_allocated() / 1e9
+
+    def timed(name, fn):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        out[name] = {"ms": (time.perf_counter() - t0) * 1e3,
+                     "peak_gb_above_resident": torch.cuda.max_memory_allocated() / 1e9 - base_gb}
+        return result
+
+    reset_kernel_counts()
+    timed("get_neighbors_warmup", lambda: stats.get_neighbors({hook: sae}, {hook: selected[:16]}, k=10, device=dev))
+    neighbors, _ = timed("get_neighbors", lambda: stats.get_neighbors({hook: sae}, {hook: selected}, k=10, device=dev))
+    top = timed("logits", lambda: stats.logits(records, W_U, W_dec.T, k=10, tokenizer=_StubTokenizer(), device=dev))
+    pca = timed("pca_fit_sae_list", lambda: PcaReducer(n_components=2, device=dev).fit_sae_list([sae]))
+    # The JAX package's route, the thin SVD of the centred decoder, timed
+    # beside the port's Gram route as the reason for taking the latter.
+    svd = timed("pca_svd_reference", lambda: torch.linalg.svd(W_dec - W_dec.mean(dim=0), full_matrices=False).Vh[:2])
+    launches = kernel_counts()
+    if any(launches.values()):
+        raise AssertionError(f"the stats phase launched kernels: {launches}")
+    out["get_neighbors"].update(features=len(selected), k=10, cos_gb=len(selected) * W_dec.shape[0] * 4 / 1e9)
+    out["logits"].update(records=len(records), k=10)
+    out["pca_fit_sae_list"].update(rows=W_dec.shape[0], cols=W_dec.shape[1])
+
+    # float64 on the card for 16 features.
+    t0 = time.perf_counter()
+    sel = torch.as_tensor(selected[:16], device=dev)
+    W64 = W_dec.double()
+    unit = W64 / (torch.linalg.vector_norm(W64, dim=1, keepdim=True) + 1e-12)
+    cos64 = unit[sel] @ unit.T  # (16, L)
+    got_idx = np.array([[int(f)] + neighbors[hook][i]["indices"] for i, f in enumerate(selected[:16])])
+    _near_tie_order(got_idx, cos64, "get_neighbors")
+    got_vals = torch.tensor([neighbors[hook][i]["values"] for i in range(16)], dtype=torch.float64, device=dev)
+    cos_err = (got_vals - torch.gather(cos64, 1, torch.as_tensor(got_idx[:, 1:], device=dev))).abs().max().item()
+    if not cos_err <= STATS_ATOL:
+        raise AssertionError(f"neighbour cosines differ from float64 by {cos_err}")
+    del unit, cos64
+    feats16 = torch.tensor([r.feature.feature_index for r in records[:16]], device=dev)
+    logits64 = W_U.double() @ W64[feats16].T  # (V, 16)
+    _near_tie_order(np.array([[int(t) for t in r.top_logits] for r in records[:16]]), logits64.T.contiguous(), "logits")
+    del logits64
+    c = pca.components_.double()
+    eye = torch.eye(2, device=dev, dtype=torch.float64)
+    ortho = (c @ c.T - eye).abs().max().item()
+    svd_ortho = (svd.double() @ svd.double().T - eye).abs().max().item()
+    del svd
+    Xc = W64 - W64.mean(dim=0)
+    del W64
+    cov = Xc.T @ Xc / (Xc.shape[0] - 1)
+    del Xc
+    eig = torch.linalg.eigvalsh(cov)[-2:].flip(0)
+    ev = ((c @ cov) * c).sum(dim=1)
+    ev_rel = ((ev - eig).abs() / eig).max().item()
+    del cov
+    if not ortho <= PCA_ORTHO:
+        raise AssertionError(f"PCA components are orthonormal only within {ortho}")
+    if not ev_rel <= PCA_EV_REL:
+        raise AssertionError(f"PCA explained variance {ev.tolist()} against eigenvalues {eig.tolist()}: rel {ev_rel}")
+    emit({
+        "phase": "stats_path", "decoder": "131072 x 4096 fp32", "lm_head": "128256 x 4096 bf16",
+        "calls": out, "float64_check_s": time.perf_counter() - t0, "checked_features": 16,
+        "neighbor_cos_max_abs_err": cos_err, "pca_ortho_err": ortho, "svd_reference_ortho_err": svd_ortho,
+        "pca_explained_variance": ev.tolist(),
+        "cov_top_eigenvalues": eig.tolist(), "pca_ev_rel_err": ev_rel, "launches": launches, "card": card,
+    })
+    return {"launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card", file=sys.stderr)
@@ -1826,16 +2139,24 @@ def main() -> int:
     k1 = phase_block_max(dev)
     k3 = phase_flash_attention(dev)
     k3_bwd = phase_flash_attention_bwd(dev)
-    cache = phase_cache_path(dev, card)
+    # The loader reads the splits the cache phase merged, in its directory.
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work_dir:
+        cache = phase_cache_path(dev, card, work_dir)
+        loaded = phase_loader_path(card, cache.pop("cache_dir"), cache.pop("hook"), cache.pop("tokens"))
     torch.cuda.empty_cache()
     attribution = phase_attribution_path(dev, card)
+    stats = phase_stats_path(dev, card, attribution.pop("model"), attribution.pop("sae"),
+                             loaded["records"], loaded["selected"])
+    loader_launches = loaded["launches"]
+    del loaded
     gc.collect()
     torch.cuda.empty_cache()
     train = phase_train_path(dev, card)
     gc.collect()
     torch.cuda.empty_cache()
     image = phase_image_cache_path(dev, card)
-    runs = (cache["launches"], attribution["launches"], train["launches"], image["launches"])
+    runs = (cache["launches"], loader_launches, attribution["launches"], stats["launches"],
+            train["launches"], image["launches"])
     total = {name: sum(run[name] for run in runs) for name in runs[0]}
     k2, splice, dvals = attribution["k2"], attribution["splice"], train["dvals"]
     bwd_launches = {part: total[f"flash_attention_bwd_{part}"] for part in ("delta", "dkdv", "dq")}

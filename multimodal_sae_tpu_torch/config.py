@@ -1,9 +1,10 @@
 """Configuration dataclasses of the port's cache and training paths.
 
 Field-for-field copies of `multimodal_sae_tpu.config.SaeConfig`,
-`TrainConfig`, `RunConfig` and `CacheConfig` (same names, defaults and
-order), so `cfg.json` and `config.json` files and CLI flags are
-interchangeable between the two packages.  Options whose paths a later slice
+`TrainConfig`, `RunConfig`, `ExperimentConfig`, `FeatureConfig` and
+`CacheConfig` (same names, defaults and order), so `cfg.json` and
+`config.json` files and CLI flags are interchangeable between the two
+packages.  Options whose paths a later slice
 ports (int8, tensor and data parallelism, module distribution, multimodal
 data) are accepted here and refused by the entry points that would need them.
 """
@@ -12,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import List, Literal, Optional
 
 
 @dataclass
@@ -176,6 +177,76 @@ class RunConfig(TrainConfig):
     truncate_layers: int = 0
     """Keep only the first N transformer layers of the subject resident
     (0 = all); every trained hookpoint must be below N."""
+
+
+@dataclass
+class ExperimentConfig:
+    """Interpretation-experiment configuration
+    (reference sae_auto_interp/config.py:8-54)."""
+
+    model: str = "EleutherAI/pythia-160m"
+    """Name of the subject model."""
+
+    dataset: str = "togethercomputer/RedPajama-Data-1T-Sample"
+    """Path to the dataset."""
+
+    sae_path: Optional[str] = None
+    """Path to your trained sae. Should be local."""
+
+    train_type: Literal["top", "random", "quantile"] = "top"
+    """Type of sampler to use for training examples."""
+
+    n_examples_train: int = 10
+    """Number of examples to sample for training."""
+
+    n_examples_test: int = 7
+    """Number of examples to sample for testing."""
+
+    n_quantiles: int = 10
+    """Number of quantiles to sample."""
+
+    n_random: int = 5
+    """Number of random examples to sample."""
+
+    explainer: str = "meta-llama/Meta-Llama-3.1-405B-Instruct-FP8"
+    """The name of the explainer model."""
+
+    explanation_dir: str = "./explanation_dir"
+    """Dir to save your explanation result."""
+
+    scores_dir: str = "./scores_dir"
+    """Dir to save your scores result."""
+
+    selected_layers: List[int] = field(default_factory=list)
+
+    split: str = "train"
+    """Dataset split to use."""
+
+    save_dir: str = "./features_cache"
+    """Save dir of previously cached features."""
+
+    filters_path: Optional[str] = None
+    """Json file mapping hookpoint -> list of feature indices to keep."""
+
+
+@dataclass
+class FeatureConfig:
+    """Cached-feature dataset configuration (reference sae_auto_interp/config.py:57-72)."""
+
+    width: int = 131072
+    """Number of features in the autoencoder."""
+
+    example_ctx_len: int = 64
+    """Length of each example."""
+
+    min_examples: int = 200
+    """Minimum number of examples for a feature to be included."""
+
+    max_examples: int = 10000
+    """Maximum number of examples for a feature to be included."""
+
+    n_splits: int = 2
+    """Number of splits that features were divided into."""
 
 
 @dataclass

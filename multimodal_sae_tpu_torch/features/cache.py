@@ -163,6 +163,29 @@ class Cache:
             locations[:, 2] = idx[b, s, j]
             arena.append(locations, vals[mask])
 
+    def add(self, latents, batch_number: int, module_path: str):
+        """Add a dense (B, S, F) batch of masked latents, the reference's
+        path (cache.py:42-57): its entries with |value| > 1e-5 (and in the
+        module's filter), rows offset by `batch_number * batch_size`.  A
+        torch tensor, on the card or not, moves to the host once."""
+        locations, activations = self.get_nonzeros(latents, module_path)
+        locations = locations.copy()
+        locations[:, 0] += batch_number * self.batch_size + self.shard_size
+        self._arenas[module_path].append(locations, activations)
+
+    def get_nonzeros(self, latents, module_path: str):
+        """(locations (N, 3) int64, activations (N,)) of the entries of a
+        dense (B, S, F) batch with |value| > 1e-5, in row-major order, kept
+        to the module's filter."""
+        latents = _host_array(latents)
+        mask = np.abs(latents) > 1e-5
+        locations = np.argwhere(mask).astype(np.int64)
+        activations = latents[mask]
+        if self.filters is None:
+            return locations, activations
+        keep = np.isin(locations[:, 2], self.filters[module_path])
+        return locations[keep], activations[keep]
+
     def save(self):
         """Publish the arenas as single per-module arrays (views)."""
         for module_path, arena in self._arenas.items():
@@ -203,7 +226,7 @@ class FeatureCache:
         self.width = first_sae.cfg.num_latents_for(first_sae.d_in)
         self.cache = Cache(shard_size, filters, batch_size=batch_size)
         if filters is not None:
-            self.submodule_dict = {k: v for k, v in self.submodule_dict.items() if k in filters}
+            self.filter_submodules(filters)
         self._stream = None
         self._stream_n_splits = 0
         self._stream_marks: Dict[str, int] = {}
@@ -226,6 +249,10 @@ class FeatureCache:
         self._stream_save_dir = save_dir
         self._stream_rank = rank
         self._stream_marks = {}
+
+    def filter_submodules(self, filters: Dict[str, np.ndarray]):
+        """Keep only the hookpoints the filter names (reference cache.py:151-156)."""
+        self.submodule_dict = {k: v for k, v in self.submodule_dict.items() if k in filters}
 
     def _device_step(self, batch: dict, skip_bos: bool = False) -> dict:
         """Dispatch one batch's device work (capture + per-hookpoint top-k)
@@ -277,6 +304,12 @@ class FeatureCache:
                     )
                     self._stream_marks[module_path] = arena.n
         self._row_cursor += n_rows
+
+    def process_batch(self, batch: dict, batch_number: int, skip_bos: bool = False):
+        """One cache step without the run loop's overlap: capture, encode
+        each hookpoint, accumulate its entries."""
+        set_precision()
+        self._host_step(self._device_step(batch, skip_bos), batch_number, _batch_rows(batch))
 
     def _preallocate_arenas(self, n_tokens: int, tokens=None):
         """Size each arena from the run-wide estimate: `n_tokens` per row
@@ -349,11 +382,30 @@ class FeatureCache:
         # The end is inclusive in the file name (reference cache.py:243-247).
         return list(zip(boundaries[:-1], boundaries[1:] - 1))
 
-    def save_splits(self, n_splits: int, save_dir: str, rank: int = 0):
+    def save(self, save_dir: str):
+        """Write one `{save_dir}/{module}.safetensors` per module, the
+        unsplit layout (reference cache.py:232-241)."""
+        for module_path in self.cache.nonempty_modules():
+            save_file(
+                {
+                    "locations": self.cache.feature_locations[module_path],
+                    "activations": self.cache.feature_activations[module_path],
+                },
+                f"{save_dir}/{module_path}.safetensors",
+            )
+
+    def save_splits(self, n_splits: int, save_dir: str, rank: int = 0, *, replicate_boundary_drop: bool = False):
         """Write this rank's feature-range shards
         `Rank{r}_{start}_{end}.safetensors`.  Features on a split boundary
-        are kept (the reference's `features < end` dropped them)."""
+        are kept; the reference's `features < end` against the inclusive
+        end dropped them, which `replicate_boundary_drop=True` reproduces to
+        bit-match caches the reference wrote (not with streaming)."""
         if self._stream is not None:
+            if replicate_boundary_drop:
+                raise ValueError(
+                    "streaming shard writes keep boundary features; disable "
+                    "enable_streaming() to replicate the reference's boundary drop"
+                )
             if n_splits != self._stream_n_splits:
                 raise ValueError(
                     f"streaming was enabled with n_splits={self._stream_n_splits}, got {n_splits}"
@@ -384,13 +436,14 @@ class FeatureCache:
             activations = self.cache.feature_activations[module_path]
             module_dir = f"{save_dir}/{module_path}"
             os.makedirs(module_dir, exist_ok=True)
-            if activations.dtype == np.float32:
+            if not replicate_boundary_drop and activations.dtype == np.float32:
                 parts = coo_partition_splits(locations, activations, boundaries)
             else:
                 feats = locations[:, 2]
+                drop = 0 if replicate_boundary_drop else 1
                 parts = [
                     (locations[m], activations[m])
-                    for m in ((feats >= s) & (feats <= e) for s, e in split_indices)
+                    for m in ((feats >= s) & (feats < e + drop) for s, e in split_indices)
                 ]
             for (start, end), (locs, acts) in zip(split_indices, parts):
                 save_file(
@@ -447,6 +500,17 @@ class FeatureImageCache(FeatureCache):
                 "cache always drops the BOS position (reference cache.py:402-409)"
             )
         super().run(n_tokens, tokens, progress=progress, skip_bos=True)
+
+
+def _host_array(x) -> np.ndarray:
+    """A numpy view of `x`; a torch tensor is copied to the host once (bf16,
+    which numpy lacks, widened to fp32, exactly)."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach()
+        if x.dtype == torch.bfloat16:
+            x = x.float()
+        return x.cpu().numpy()
+    return np.asarray(x)
 
 
 def _batch_rows(batch: dict) -> int:

@@ -1,10 +1,12 @@
-"""Launch-script plumbing of the cache CLIs (multimodal_sae_tpu/launch/utils.py):
-subject loading from a local HF checkpoint, datasets, hookpoint checks.
+"""Launch-script plumbing (multimodal_sae_tpu/launch/utils.py): subject
+loading from a local HF checkpoint, datasets, hookpoint checks, and the
+cached-feature loader of the explain, score and image tools.
 `transformers` and `datasets` are imported only inside the helpers that need
 a tokenizer, a processor or an HF dataset."""
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import os
@@ -124,3 +126,49 @@ def validate_hookpoints(model, hookpoints) -> None:
 def shard_info() -> Tuple[int, int]:
     """(rank, world): one process until multi-process runs are ported."""
     return 0, 1
+
+
+def parse_feature_experiment(argv=None):
+    """Parse FeatureConfig + ExperimentConfig from one flag namespace;
+    returns an object with `.feature` and `.experiment`."""
+    from ..config import ExperimentConfig, FeatureConfig
+    from ..utils.cli import add_dataclass_args, dataclass_from_namespace
+
+    parser = argparse.ArgumentParser()
+    add_dataclass_args(parser, FeatureConfig)
+    add_dataclass_args(parser, ExperimentConfig)
+    ns = parser.parse_args(argv)
+    return argparse.Namespace(
+        feature=dataclass_from_namespace(FeatureConfig, ns),
+        experiment=dataclass_from_namespace(ExperimentConfig, ns),
+    )
+
+
+def select_modules(save_dir: str, filters, selected_layers):
+    """The module directories of a cache, natsorted (layers.5 < layers.10),
+    narrowed to the filter's keys, else to the selected layer positions."""
+    from ..utils import natsorted
+
+    modules = natsorted(os.listdir(save_dir))
+    if filters is not None:
+        return [m for m in modules if m in filters]
+    if selected_layers:
+        return [m for i, m in enumerate(modules) if i in selected_layers]
+    return modules
+
+
+def build_feature_loader(args, constructor, sampler=None):
+    """A `FeatureDataset` over `args.experiment.save_dir` (filtered by
+    `filters_path` when given) and its `load` with the already-bound
+    `constructor(record, buffer_output)` and `sampler(record)`.  Returns
+    (loader, modules)."""
+    from functools import partial
+
+    from ..features import FeatureDataset
+    from ..interp_utils import load_filter
+
+    filters = load_filter(args.experiment.filters_path) if args.experiment.filters_path is not None else None
+    modules = select_modules(args.experiment.save_dir, filters, args.experiment.selected_layers)
+    dataset = FeatureDataset(raw_dir=args.experiment.save_dir, cfg=args.feature, modules=modules, features=filters)
+    loader = partial(dataset.load, constructor=constructor, sampler=sampler)
+    return loader, modules

@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: no file of it, nor chip_smoke.py, imports
 jax or the JAX package; importing every module of it in a fresh interpreter
-leaves both unloaded; its entry points refuse to run without a CUDA device
-unless the caller names one; chip_smoke.py fails without a card, and alone
-in a directory, and prints no result."""
+leaves both unloaded; the loader's modules import without PIL or
+safetensors, as on the card's machine; its entry points refuse to run
+without a CUDA device unless the caller names one; chip_smoke.py fails
+without a card, and alone in a directory, and prints no result."""
 
 import ast
 import os
@@ -27,6 +28,18 @@ IMAGE_MODULES = (
     "multimodal_sae_tpu_torch.launch.cache.cache_image",
     "multimodal_sae_tpu_torch.models.clip_vit",
     "multimodal_sae_tpu_torch.models.llava_next",
+)
+LOADER_MODULES = (
+    "multimodal_sae_tpu_torch.features.constructors",
+    "multimodal_sae_tpu_torch.features.dim_reduce",
+    "multimodal_sae_tpu_torch.features.dim_reduce.dim_reducer",
+    "multimodal_sae_tpu_torch.features.dim_reduce.pca",
+    "multimodal_sae_tpu_torch.features.dim_reduce.umap",
+    "multimodal_sae_tpu_torch.features.features",
+    "multimodal_sae_tpu_torch.features.loader",
+    "multimodal_sae_tpu_torch.features.samplers",
+    "multimodal_sae_tpu_torch.features.split_index",
+    "multimodal_sae_tpu_torch.features.stats",
 )
 TRAIN_MODULES = (
     "multimodal_sae_tpu_torch.__main__",
@@ -60,7 +73,7 @@ def test_importing_every_module_leaves_jax_unloaded():
         "import multimodal_sae_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        f"assert set({ATTRIBUTION_MODULES + IMAGE_MODULES + TRAIN_MODULES!r}) <= set(names)\n"
+        f"assert set({ATTRIBUTION_MODULES + IMAGE_MODULES + LOADER_MODULES + TRAIN_MODULES!r}) <= set(names)\n"
         "import chip_smoke\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert len(names) > 20 and not bad, (len(names), bad)\n"
@@ -69,6 +82,31 @@ def test_importing_every_module_leaves_jax_unloaded():
     r = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300
     )
+    assert r.returncode == 0, r.stderr[-2000:]
+
+
+def test_loader_modules_import_without_pil_or_safetensors():
+    """The card's machine has neither: the loader, constructors, split
+    index and stats import without them, and a split is written and read."""
+    code = (
+        "import sys\n"
+        "for name in ('PIL', 'safetensors'): sys.modules[name] = None\n"
+        "import numpy as np, os, tempfile\n"
+        "from multimodal_sae_tpu_torch.features import constructors, loader, split_index, stats, FeatureDataset\n"
+        "from multimodal_sae_tpu_torch.features.dim_reduce import PcaReducer\n"
+        "from multimodal_sae_tpu_torch.utils.safetensors_io import save_file\n"
+        "d = tempfile.mkdtemp()\n"
+        "os.mkdir(os.path.join(d, 'm'))\n"
+        "loc = np.array([[0, 1, 2], [1, 0, 2], [1, 1, 3]], np.int64)\n"
+        "save_file({'locations': loc, 'activations': np.ones(3, np.float32)}, os.path.join(d, 'm', '0_3.safetensors'))\n"
+        "assert split_index.ensure_index(d) == 1\n"
+        "from multimodal_sae_tpu_torch.config import FeatureConfig\n"
+        "ds = FeatureDataset(d, FeatureConfig(width=4, n_splits=1, min_examples=1))\n"
+        "assert [r.feature.feature_index for r in ds.load(collate=True)] == [2, 3]\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in ('PIL', 'safetensors') and sys.modules[m]]\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]
 
 
@@ -81,7 +119,10 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
     from multimodal_sae_tpu_torch.__main__ import run
     from multimodal_sae_tpu_torch.config import CacheConfig, SaeConfig, TrainConfig
     from multimodal_sae_tpu_torch.features.patching import Attribution
-    from multimodal_sae_tpu_torch.interp_utils import load_saes
+    from multimodal_sae_tpu_torch.features import stats
+    from multimodal_sae_tpu_torch.features.dim_reduce import PcaReducer
+    from multimodal_sae_tpu_torch.features.features import Feature, FeatureRecord
+    from multimodal_sae_tpu_torch.interp_utils import load_saes, load_single_sae
     from multimodal_sae_tpu_torch.launch.cache import cache as cli
     from multimodal_sae_tpu_torch.launch.cache import cache_image as image_cli
     from multimodal_sae_tpu_torch.launch.utils import load_subject_model
@@ -109,6 +150,11 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
         lambda: Attribution(None, None, str(tmp_path), str(tmp_path / "probe.json"), selected_sae="layers.0"),
         lambda: SaeTrainer(TrainConfig(hookpoints=["layers.0"]), [], SyntheticActivationSource(d_model=4, device="cpu")),
         lambda: run(["synthetic://4,1,8", str(tmp_path / "tokens.bin")]),
+        lambda: load_single_sae(str(tmp_path), "layers.0"),
+        lambda: PcaReducer(),
+        lambda: stats.cos(torch.eye(4)),
+        lambda: stats.logits([FeatureRecord(Feature("m", 0))], torch.eye(4), torch.eye(4)),
+        lambda: stats.get_neighbors({"layers.0": None}, {"layers.0": [0]}),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
