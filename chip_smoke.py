@@ -49,6 +49,10 @@ Phases; any failure raises and ends the run with a non-zero exit code:
    the raw split (tokens and activations bit for bit), threaded equal to
    sequential, scan equal to sidecar, no kernel launched; smoke readings of
    seconds, records/s, entries/s and the host CPU's share per build;
+   explain_score_path, on the loader's kept records: `SimpleExplainer` then
+   `SimpleScorer` through `Pipeline` on in-process stub clients, one
+   explanation file and one score file per record, each read back; smoke
+   readings of records/s; no kernel launched;
 6. gather_rows (K2), inside the attribution phase after its counted run,
    on the subject's clean top-k (2,432 tokens x 256 rows of a
    131,072 x 4,096 fp32 decoder): copy mode bit-exact against
@@ -73,6 +77,20 @@ Phases; any failure raises and ends the run with a non-zero exit code:
    with exact zeros at the pad positions and the fast path against the
    general path for 2 features; one chunk is timed stage by stage
    (CUDA events) and once under torch.profiler;
+   general_attribution_path, on that subject: `general_attribution_maps`
+   over two hookpoints, a second SAE of the same shape at layers.16 beside
+   the one at layers.24, one 2,432-token prompt, 3 features from each
+   hook's last-token top-k and 1 outside every top-k (exact zeros at both
+   hooks), the launch counts per feature asserted, the stage split (clean
+   forward once; corrupted forward, backward, saliency products per
+   feature, CUDA events), ms per feature, features/s and peak memory; K2's
+   dvals mode at the upper splice's indices (2,432 x 256) and the K3
+   backward at one prompt (1, 32, 8, 2,432, 128) against their plain
+   versions, dvals' share of a feature; and the call at reduced depth (4
+   layers, 256 tokens, full widths, fp32, eager attention) on the card
+   against the CPU within GENERAL_CPU_L2_REL, the CPU taking every splice's
+   top-k selection from the card's run (where its own would differ, the
+   card's pick must be a near-tie);
    stats_path, after the attribution phase, on that subject's LM head and that SAE's
    decoder: `get_neighbors` for the loader's 2,000 features at k = 10, `logits` for
    the loader's records (a stub tokenizer), `PcaReducer.fit_sae_list` at
@@ -112,7 +130,12 @@ Phases; any failure raises and ends the run with a non-zero exit code:
    mixed batch alone against its padded row (equal bits); prints smoke
    readings of images/s, tokens/s and peak memory over the five batches,
    and one batch's stages (CUDA events);
-10. a `kernels` JSON line, the card line, and the result line.
+10. clip_path: full CLIP (`models/clip_full.py`) at
+   openai/clip-vit-base-patch16's widths with random fp32 weights, 64
+   seeded pixel arrays and 64 id rows: ms per image and per text, 8 of each
+   against the CPU within CLIP_L2_REL, the scores against max(0, 100 cos)
+   of the embeddings in float64; no kernel launched;
+11. a `kernels` JSON line, the card line, and the result line.
 
 Needs one CUDA card; exits non-zero without one.  Imports nothing of JAX.
 """
@@ -209,6 +232,28 @@ ATTRIBUTION_L2_REL = 1e-3
 # scattered elements stays well under the bound.
 
 
+GENERAL_CPU_L2_REL = 1e-3
+# The two-hookpoint general path on the card against the same call on the
+# CPU at reduced depth (4 layers, 256 tokens, full widths), both fp32 with
+# eager attention (K3 takes bf16 only; it is held to its plain version at
+# the full run's shapes), the CPU taking the card's top-k selection at every
+# splice: ||card - cpu|| <= 1e-3 * ||cpu|| per hook.  Each side sums its
+# fp32 products in its own order (about 1e-6 relative apart).  The feature
+# outside every top-k is exactly 0 at both hooks on both sides.
+GENERAL_NEAR_TIE = 1e-4
+# Where the CPU's own top-k would select another set than the card's, the
+# card's weakest pick must lie within 1e-4 relative of the CPU's own k-th
+# latent: a tie within the sides' fp32 noise (about 1e-6 relative, 1e-5 at
+# the most), not a wrong latent.
+CLIP_L2_REL = 1e-4
+# CLIP embeddings on the card against the same call on the CPU, per row:
+# ||card - cpu|| <= 1e-4 * ||cpu||.  Both run in fp32 (TF32 off), 12 layers
+# of fp32 sums in other orders, each about 1e-6 relative apart.
+CLIP_SCORE_ATOL = 1e-3
+# The card's scores against max(0, 100 * cos) of its own embeddings taken
+# in float64: within 1e-3 on the 0-100 scale (fp32 norms and a 512-term dot).
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -297,19 +342,22 @@ def _bits_err(a: torch.Tensor, b: torch.Tensor) -> float:
 def phase_block_max(dev) -> dict:
     """K1 at the main path's two filter levels (level 1 over the 131,072
     latents at block 64, level 2 over the 16,384 candidates at block 8, fp32),
-    for the text cache's 8 x 2,048 tokens and the image cache's 9,360 (4
-    images of 2,341 tokens less the BOS), and at bf16 block 128."""
+    for the text cache's 8 x 2,048 tokens, the image cache's 9,360 (4
+    images of 2,341 tokens less the BOS) and one attribution prompt's 2,432
+    (each splice's top-k on the general path), and at bf16 block 128."""
     from multimodal_sae_tpu_torch.ops import block_max as bm
 
     gen = torch.Generator(device=dev).manual_seed(1)
     zero = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
-    per_step = {"text": dict(zero), "image": dict(zero)}
+    per_step = {"text": dict(zero), "image": dict(zero), "prompt": dict(zero)}
     max_abs_err = 0.0
     for n, w, block, dtype, step in (
         (16384, 131072, 64, torch.float32, "text"),
         (16384, 16384, 8, torch.float32, "text"),
         (9360, 131072, 64, torch.float32, "image"),
         (9360, 16384, 8, torch.float32, "image"),
+        (2432, 131072, 64, torch.float32, "prompt"),
+        (2432, 16384, 8, torch.float32, "prompt"),
         (4096, 131072, 128, torch.bfloat16, None),
     ):
         x = torch.randn(n, w, generator=gen, device=dev, dtype=torch.float32).to(dtype)
@@ -345,7 +393,8 @@ def phase_block_max(dev) -> dict:
     emit({"phase": "block_max_blocks", "shape": [64, 16384], "blocks": list(bm.BLOCKS),
           "dtypes": ["float32", "bfloat16"], "bitexact": True})
     torch.cuda.empty_cache()
-    return {**per_step["text"], "max_abs_err": max_abs_err, "image_step": per_step["image"]}
+    return {**per_step["text"], "max_abs_err": max_abs_err, "image_step": per_step["image"],
+            "prompt_step": per_step["prompt"]}
 
 
 def _check_attention(fa, q, k, v, pad_mask, scale, what) -> float:
@@ -1099,6 +1148,8 @@ KERNEL_GROUPS = (
     ("flash_attention", ("flash_fwd_kernel",)),
     ("splice_decode", ("splice_decode_kernel",)),
     ("gather_rows", ("gather_decode_kernel", "gather_rows_kernel")),
+    ("decode_dvals", ("decode_dvals_kernel",)),
+    ("block_max", ("block_max_kernel",)),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "cublas")),
 )
 
@@ -2020,10 +2071,6 @@ def phase_loader_path(card: str, cache_dir: str, hook: str, tokens: np.ndarray) 
         "entries_checked": checked, "check_s": check_s, "threaded_equals_sequential": True,
         "scan_equals_sidecar": True, "launches": launches, "card": card,
     })
-    # The stats phase needs only each record's feature: drop the examples
-    # (about a million Python objects and their arrays) once checked.
-    for r in filtered:
-        r.examples = r.train = None
     return {"launches": launches, "records": filtered, "selected": selected}
 
 
@@ -2129,6 +2176,433 @@ def phase_stats_path(dev, card: str, model, sae, records, selected) -> dict:
     return {"launches": launches}
 
 
+def check_flash_bwd_b1(dev) -> dict:
+    """The K3 chain at the general path's attention shape, one prompt
+    (1, 32, kvH 8, 2,432, 128) bf16, against the plain pair; then the
+    backward, and the forward with lse, each timed beside its bound, SDPA's
+    GQA call and the plain version."""
+    from multimodal_sae_tpu_torch.ops import flash_attention as fa
+
+    B, H, kvH, S, hd = 1, 32, 8, 2432, 128
+    scale = hd ** -0.5
+    gen = torch.Generator(device=dev).manual_seed(11)
+    q = torch.randn(B, H, S, hd, generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn(B, kvH, S, hd, generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn(B, kvH, S, hd, generator=gen, device=dev).to(torch.bfloat16)
+    do = torch.randn(B, H, S, hd, generator=gen, device=dev).to(torch.bfloat16)
+    line = _check_bwd_chain(fa, q, k, v, None, do, scale, f"({B}, {H}, {kvH}, {S}, {hd})")
+    o, lse = fa.flash_attention_fwd(q, k, v, None, scale, need_lse=True)
+    kernel_ms = time_ms(lambda: fa.flash_attention_bwd(q, k, v, None, o, lse, do, scale))
+    plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, None, o, lse, do, scale), iters=2, warmup=1)
+    forward = {"ms": time_ms(lambda: fa.flash_attention_fwd(q, k, v, None, scale, need_lse=True)),
+               "plain_ms": time_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, None, scale), iters=2, warmup=1),
+               "library_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                   q, k, v, is_causal=True, scale=scale, enable_gqa=True))}
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg, is_causal=True, scale=scale, enable_gqa=True)
+    library_ms = time_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True))
+    pairs = B * H * S * (S + 1) / 2
+    nbytes = (4 * B * H * S * hd + 4 * B * kvH * S * hd) * 2 + B * H * S * 4
+    flops = 10 * hd * pairs
+    fwd_flops, fwd_bytes = 4 * hd * pairs, (2 * B * H * S * hd + 2 * B * kvH * S * hd) * 2 + B * H * S * 4
+    forward.update(bound_ms=max(fwd_flops / BF16_FLOPS, fwd_bytes / HBM_BYTES_PER_S) * 1e3,
+                   bound_by="operations" if fwd_flops / BF16_FLOPS > fwd_bytes / HBM_BYTES_PER_S else "bytes")
+    del q, k, v, do, o, lse, qg, kg, vg, out
+    torch.cuda.empty_cache()
+    return {"shape": [B, H, kvH, S, hd], "forward_with_lse": forward, "max_abs_err": max(e["max_abs_err"] for e in line["errors"].values()),
+            "errors": line["errors"], "deterministic": True, "ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3,
+            "bound_by": "operations" if flops / BF16_FLOPS > nbytes / HBM_BYTES_PER_S else "bytes",
+            "tflops": flops / kernel_ms / 1e9}
+
+
+def _topk_at_hooks(model, batch, sae_dict) -> dict:
+    """{hook: (N, k) top-k indices} of every token at each hook of the clean
+    spliced forward (each SAE reads the output of the splices below it)."""
+    from multimodal_sae_tpu_torch.features.patching import sae_splice_intervention
+
+    tops = {}
+
+    def recorder(name, sae):
+        splice = sae_splice_intervention(sae)
+
+        def iv(h):
+            tops[name] = sae.encode(h.reshape(-1, h.shape[-1])).top_indices
+            return splice(h)
+
+        return iv
+
+    with torch.no_grad():
+        model.forward(batch, capture=tuple(sae_dict), return_logits=False,
+                      interventions={name: recorder(name, sae) for name, sae in sae_dict.items()})
+    return tops
+
+
+def _selections(record: list, replay: bool):
+    """A context in which every splice's top-k (the general path's
+    `select_topk`) is recorded or replayed.  Recording appends each call's
+    selected indices to `record`.  Replaying takes them back in order: the
+    selected values are the latents gathered at the recorded indices (the
+    same gradient into them as top-k's), and each call appends, for the
+    tokens whose own top-k would select another set, the relative gap
+    between their own k-th latent and the weakest recorded one."""
+    import contextlib
+
+    from multimodal_sae_tpu_torch.features.patching import utils as splice_utils
+    from multimodal_sae_tpu_torch.sae.model import EncoderOutput
+
+    real, recorded = splice_utils.select_topk, iter(list(record))
+    gaps = []
+
+    def record_call(latents, k):
+        out = real(latents, k)
+        record.append(out.top_indices.detach().cpu())
+        return out
+
+    def replay_call(latents, k):
+        idx = next(recorded).to(latents.device)
+        vals = latents.gather(-1, idx.long())
+        own = torch.topk(latents.detach(), k, dim=-1)
+        rows = (own.indices.sort(-1).values != idx.long().sort(-1).values).any(-1)
+        kth = own.values[:, -1]
+        gap = (kth - vals.detach().min(-1).values) / kth.clamp_min(torch.finfo(kth.dtype).tiny)
+        gaps.append(gap[rows].cpu())
+        return EncoderOutput(vals, idx)
+
+    @contextlib.contextmanager
+    def patched():
+        splice_utils.select_topk = replay_call if replay else record_call
+        try:
+            yield gaps
+        finally:
+            splice_utils.select_topk = real
+        if replay and next(recorded, None) is not None:
+            raise AssertionError("reduced run: the CPU made fewer selections than the card")
+
+    return patched()
+
+
+def _reduced_comparison(model, sae_dict, dev, layers=4, S=256) -> dict:
+    """The two-hookpoint general path on the card and on the CPU at reduced
+    depth: the subject's first `layers` layers and its LM head in fp32 with
+    eager attention, the two SAEs at `layers.1` and `layers.2`, one prompt
+    of S ids; one feature from the lower hook's last-token top-k and one
+    outside every top-k.
+
+    The gradient at the lower splice runs through the upper splice's k
+    selected latents, so a latent that ties the k-th within the two sides'
+    fp32 noise and is selected on one side only would move that token's
+    gradient by a step.  The card's selections are therefore recorded and
+    the CPU run takes the same ones: the saliency must then agree within
+    GENERAL_CPU_L2_REL.  Where the CPU's own top-k would have selected
+    another set, the card's weakest pick must lie within GENERAL_NEAR_TIE of
+    the CPU's own k-th latent; the count of such tokens is reported."""
+    from functools import partial
+
+    import dataclasses
+
+    from multimodal_sae_tpu_torch.features.patching import general_attribution_maps, get_logit_diff
+    from multimodal_sae_tpu_torch.models.llama import LlamaModel
+    from multimodal_sae_tpu_torch.sae import Sae
+
+    cfg = dataclasses.replace(model.cfg, num_hidden_layers=layers, flash_attention=False)
+
+    def subject(device):
+        p = {name: t.to(device=device, dtype=torch.float32) for name, t in model.params.items() if name != "layers"}
+        p["layers"] = [{name: t.to(device=device, dtype=torch.float32) for name, t in lp.items()}
+                       for lp in model.params["layers"][:layers]]
+        return LlamaModel(p, cfg)
+
+    def saes(device):
+        return {f"layers.{i + 1}": Sae(sae.d_in, sae.cfg, params={n: t.to(device) for n, t in sae.params.items()})
+                for i, sae in enumerate(sae_dict.values())}
+
+    batch = {"input_ids": np.random.default_rng(100).integers(0, cfg.vocab_size, size=(1, S))}
+    sides = {"card": (subject(dev), saes(dev), torch.tensor([[1000, 2000]], device=dev)),
+             "cpu": (subject("cpu"), saes("cpu"), torch.tensor([[1000, 2000]]))}
+    gpu_model, gpu_saes, _ = sides["card"]
+    tops = _topk_at_hooks(gpu_model, batch, gpu_saes)
+    held = torch.zeros(gpu_saes["layers.1"].W_dec.shape[0], dtype=torch.bool, device=dev)
+    for idx in tops.values():
+        held[idx.long().reshape(-1)] = True
+    feats = [int(tops["layers.1"][-1, 0]), int(torch.nonzero(~held)[-1])]
+    out, seconds, card_picks = {}, {}, []
+    for side, (m, saes_, answers) in sides.items():
+        t0 = time.perf_counter()
+        with _selections(card_picks, replay=side == "cpu") as gaps:
+            out[side] = general_attribution_maps(m, saes_, batch, partial(get_logit_diff, answer_token_indices=answers),
+                                                 feats, progress=False)
+        torch.cuda.synchronize()
+        seconds[side] = time.perf_counter() - t0
+    gaps = torch.cat(gaps)
+    worst_gap = gaps.max().item() if len(gaps) else 0.0
+    if worst_gap > GENERAL_NEAR_TIE:
+        raise AssertionError(f"reduced run: the card's top-k lies {worst_gap} below the CPU's own k-th latent")
+    for name in out["cpu"]:
+        for f, got, want in zip(feats[1:], out["card"][name][1:], out["cpu"][name][1:]):
+            if np.any(got != 0) or np.any(want != 0):
+                raise AssertionError(f"reduced run: feature {f}, outside every top-k, is not 0 at {name}")
+    rel = {}
+    for name in out["cpu"]:
+        got, want = out["card"][name][0], out["cpu"][name][0]
+        rel[name] = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+        if not (np.isfinite(got).all() and np.any(want != 0) and rel[name] <= GENERAL_CPU_L2_REL):
+            raise AssertionError(f"reduced run: card and CPU differ at {name}, feature {feats[0]}: {rel}")
+    return {"layers": layers, "tokens": S, "dtype": "float32, eager attention", "features": feats,
+            "selections_replayed": len(card_picks), "cpu_would_select_differently": len(gaps),
+            "largest_gap_of_those": worst_gap, "near_tie": GENERAL_NEAR_TIE,
+            "l2_rel": rel, "l2_rel_bound": GENERAL_CPU_L2_REL,
+            "outside_exact_zero": True, "card_s": seconds["card"], "cpu_s": seconds["cpu"]}
+
+
+def phase_general_attribution_path(dev, card: str, model, sae24) -> dict:
+    """The general attribution path over two hookpoints at full width: the
+    32-layer LLaMA-3-8B-width subject of the attribution phase, its SAE at
+    layers.24 and a second one (131,072 latents, k = 256, fp32, decoder) at
+    layers.16, one prompt of 2,432 ids, 3 features from each hook's
+    last-token top-k and 1 outside every top-k, through
+    `general_attribution_maps`; then K2's dvals mode at the upper splice's
+    indices and the K3 backward at one prompt against their plain versions,
+    and the two-hookpoint call at reduced depth on the card against the CPU."""
+    from functools import partial
+
+    from multimodal_sae_tpu_torch.config import SaeConfig
+    from multimodal_sae_tpu_torch.features.patching import general_attribution_maps, get_logit_diff
+    from multimodal_sae_tpu_torch.sae import Sae
+
+    S, width, n_layers, lower, upper = 2432, 131072, 32, "layers.16", "layers.24"
+    t0 = time.perf_counter()
+    sae16 = Sae(4096, SaeConfig(num_latents=width, k=256), decoder=True, seed=1, device=dev)
+    sae_dict = {lower: sae16, upper: sae24}
+    batch = {"input_ids": np.random.default_rng(1).integers(0, model.cfg.vocab_size, size=(1, S))}
+    metric = partial(get_logit_diff, answer_token_indices=torch.tensor([[1000, 2000]], device=dev))
+    tops = _topk_at_hooks(model, batch, sae_dict)
+    held = {name: torch.zeros(width, dtype=torch.bool, device=dev) for name in sae_dict}
+    for name, idx in tops.items():
+        held[name][idx.long().reshape(-1)] = True
+    free = torch.nonzero(~(held[lower] | held[upper])).squeeze(1).cpu().numpy()
+    chosen = []
+    for name in sae_dict:
+        chosen += [f for f in tops[name][-1].long().tolist() if f not in chosen][:3]
+    outside = int(np.random.default_rng(2).choice(free))
+    feats = chosen + [outside]
+    in_lower = held[lower][torch.tensor(feats, device=dev)].tolist()
+    upper_idx = tops[upper]
+    del tops, held
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    general_attribution_maps(model, sae_dict, batch, metric, feats[:1], progress=False)  # warm-up
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    reset_kernel_counts()
+    marks = StageMarks()
+    t0 = time.perf_counter()
+    out = general_attribution_maps(model, sae_dict, batch, metric, feats, progress=False, mark=marks)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = kernel_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    stages = marks.ms()
+    F, n_above = len(feats), n_layers - 1 - int(lower.split(".")[1])
+    # The clean spliced forward once, then per feature the corrupted forward
+    # (32 attentions, a top-k of two block-max levels and a decode at each
+    # splice), the backward through the 15 layers above the lower splice,
+    # and the upper splice's decode backward (dvals; the lower splice's
+    # values take no gradient).
+    clean = {"block_max": 4, "flash_attention": n_layers, "gather_rows": 2}
+    expected = {"block_max": 4 * (F + 1), "flash_attention": n_layers * (F + 1),
+                "flash_attention_bwd_delta": n_above * F, "flash_attention_bwd_dkdv": n_above * F,
+                "flash_attention_bwd_dq": n_above * F, "gather_rows": 2 * (F + 1), "splice_decode": 0,
+                "decode_dvals": F}
+    if launches != expected:
+        raise AssertionError(f"general attribution kernel launches {launches}, expected {expected}")
+    # A splice's output changes, and its saliency is nonzero, exactly where
+    # the ablated feature is in some token's top-k at that hook or at a hook
+    # below it: at the lower hook only the features of its own top-k; at the
+    # upper hook every feature but the one outside both.
+    for name in sae_dict:
+        sal = _saliency(out, name)
+        if sal.shape != (F, 1, S):
+            raise AssertionError(f"general saliency shape {sal.shape} at {name}")
+        nonzero = [bool(np.any(s != 0)) for s in sal]
+        want = in_lower if name == lower else [True] * (F - 1) + [False]
+        if nonzero != want:
+            raise AssertionError(f"saliency nonzero for {nonzero} of features {feats} at {name}, expected {want}")
+    del out
+    profile = profile_chunk(lambda f: general_attribution_maps(model, sae_dict, batch, metric, f, progress=False),
+                            feats[:1])
+    dvals = check_decode_dvals(sae24.params["W_dec"], upper_idx)
+    del upper_idx
+    k3_bwd = check_flash_bwd_b1(dev)
+    reduced = _reduced_comparison(model, sae_dict, dev)
+    del sae_dict, sae16
+    gc.collect()
+    torch.cuda.empty_cache()
+    per_feature = {stage: stages[stage] / len(feats) for stage in ("forward", "backward", "saliency")}
+    ms_per_feature = sum(per_feature.values())
+    emit({
+        "phase": "general_attribution_path",
+        "subject": "LLaMA-3-8B widths, 32 layers, bf16, flash attention, LM head",
+        "saes": {name: "4096 -> 131072 latents, k=256, fp32, decoder" for name in (lower, upper)},
+        "prompt_tokens": S, "features": feats, "setup_s": setup_s, "run_s": run_s,
+        "clean_forward_ms": stages["clean"], "stage_ms_per_feature": per_feature,
+        "ms_per_feature": ms_per_feature, "features_per_s": F / run_s,
+        "peak_gb": peak_gb, "resident_gb": resident_gb, "launches": launches,
+        "launches_per_feature": {name: (n - clean.get(name, 0)) / F for name, n in launches.items()},
+        "dvals_ms": dvals["kernel_ms"], "dvals_share_of_feature": dvals["kernel_ms"] / ms_per_feature,
+        "dvals_check": {key: dvals[key] for key in ("tokens", "k", "distinct_rows", "max_abs_err", "err_bound",
+                                                    "plain_ms", "bound_ms", "bound_by")},
+        "one_call_profile": profile, "in_lower_topk": in_lower, "flash_attention_bwd_b1": k3_bwd, "outside_topk_exact_zero": True,
+        "reduced_card_vs_cpu": reduced,
+        "card": card,
+    })
+    return {"launches": launches, "dvals": dvals, "k3_bwd_b1": k3_bwd}
+
+
+def _tree_to(tree, device):
+    """A copy of a nest of dicts and lists of tensors on `device`."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def phase_clip_path(dev, card: str) -> dict:
+    """Full CLIP at the widths of the CLIP scorer's default model
+    (openai/clip-vit-base-patch16: vision 12 x 768 at 224 px, patch 16; text
+    12 x 512, 77 positions; projection 512), random fp32 weights from a
+    seed, 64 pixel arrays and 64 id rows made here (no PIL, no tokenizer on
+    this machine): image and text embeddings and scores on the card, 8 of
+    each held against the same call on the CPU, the scores against
+    max(0, 100 cos) of the embeddings in float64.  No kernel of the port."""
+    from multimodal_sae_tpu_torch.models import clip_full
+    from multimodal_sae_tpu_torch.models.clip_vit import ClipVisionConfig
+
+    vision = ClipVisionConfig(hidden_size=768, intermediate_size=3072, num_hidden_layers=12, num_attention_heads=12,
+                              image_size=224, patch_size=16, projection_dim=512)
+    text = clip_full.ClipTextConfig()
+    n, n_cpu = 64, 8
+    params = clip_full.init_clip_model_params(vision, text, torch.Generator(device=dev).manual_seed(0), dev)
+    rng = np.random.default_rng(3)
+    pixels = torch.from_numpy(rng.normal(size=(n, 3, 224, 224)).astype(np.float32)).to(dev)
+    ids = np.zeros((n, text.max_position_embeddings), dtype=np.int64)
+    for row, length in enumerate(rng.integers(3, text.max_position_embeddings, size=n)):
+        ids[row, : length - 1] = rng.integers(1, text.eos_token_id - 1, size=length - 1)
+        ids[row, length - 1] = text.eos_token_id
+    ids = torch.from_numpy(ids).to(dev)
+    reset_kernel_counts()
+    with torch.no_grad():
+        clip_full.clip_score(params, vision, text, pixels[:2], ids[:2])  # warm-up
+        image_ms = time_ms(lambda: clip_full.clip_embed_image(params, vision, pixels), iters=3, warmup=1)
+        text_ms = time_ms(lambda: clip_full.clip_embed_text(params, text, ids), iters=3, warmup=1)
+        img, txt = clip_full.clip_embed_image(params, vision, pixels), clip_full.clip_embed_text(params, text, ids)
+        score = clip_full.clip_score(params, vision, text, pixels, ids)
+        torch.cuda.synchronize()
+        launches = kernel_counts()
+        cos = torch.nn.functional.cosine_similarity(img.double(), txt.double(), dim=-1)
+        score_err = (score.double() - torch.clamp_min(100 * cos, 0)).abs().max().item()
+        cpu = _tree_to(params, "cpu")
+        t0 = time.perf_counter()
+        img_cpu = clip_full.clip_embed_image(cpu, vision, pixels[:n_cpu].cpu())
+        txt_cpu = clip_full.clip_embed_text(cpu, text, ids[:n_cpu].cpu())
+        cpu_s = time.perf_counter() - t0
+
+    def rel(got, want):
+        return ((got.cpu() - want).norm(dim=-1) / want.norm(dim=-1)).max().item()
+
+    img_rel, txt_rel = rel(img[:n_cpu], img_cpu), rel(txt[:n_cpu], txt_cpu)
+    if any(launches.values()):
+        raise AssertionError(f"the CLIP phase launched kernels: {launches}")
+    if not (torch.isfinite(img).all() and torch.isfinite(txt).all() and img.shape == txt.shape == (n, 512)):
+        raise AssertionError(f"CLIP embeddings {tuple(img.shape)}, {tuple(txt.shape)} or not finite")
+    if not (img_rel <= CLIP_L2_REL and txt_rel <= CLIP_L2_REL):
+        raise AssertionError(f"CLIP embeddings differ from the CPU's: image {img_rel}, text {txt_rel}")
+    if not score_err <= CLIP_SCORE_ATOL:
+        raise AssertionError(f"CLIP scores differ from max(0, 100 cos) by {score_err}")
+    emit({"phase": "clip_path", "model": "openai/clip-vit-base-patch16 widths, random fp32 weights",
+          "images": n, "texts": n, "ms_per_image": image_ms / n, "ms_per_text": text_ms / n,
+          "image_batch_ms": image_ms, "text_batch_ms": text_ms, "cpu_rows": n_cpu, "cpu_s": cpu_s,
+          "image_l2_rel": img_rel, "text_l2_rel": txt_rel, "l2_rel_bound": CLIP_L2_REL,
+          "score_max_abs_err": score_err, "score_atol": CLIP_SCORE_ATOL,
+          "score_range": [score.min().item(), score.max().item()], "launches": launches, "card": card})
+    del params, pixels, ids, img, txt, score, cpu
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
+class _StubClient:
+    """An in-process LLM client: canned replies, one per prompt, counted."""
+
+    def __init__(self, reply: str):
+        self.reply, self.calls = reply, 0
+
+    async def generate(self, prompt, **kwargs):
+        self.calls += 1
+        return self.reply
+
+
+def phase_explain_score_path(card: str, records, work_dir: str) -> dict:
+    """The loader phase's kept records through `Pipeline`: `SimpleExplainer`
+    then `SimpleScorer` (threshold 0.5, activations) on stub clients, one
+    explanation file and one score file per record, each read back; host
+    only, no kernel."""
+    import asyncio
+
+    from multimodal_sae_tpu_torch.agents import SimpleExplainer, SimpleScorer, explanation_loader
+    from multimodal_sae_tpu_torch.pipeline import Pipeline, process_wrapper
+
+    explanation_dir, scores_dir = os.path.join(work_dir, "explanations"), os.path.join(work_dir, "scores")
+    os.makedirs(explanation_dir)
+    os.makedirs(scores_dir)
+    explainer_client = _StubClient("Some thoughts.\n[EXPLANATION]: tokens of a random subject")
+    scorer_client = _StubClient("[1, 0, 2, 3, 1]")
+    explainer = SimpleExplainer(explainer_client, _StubTokenizer(), activations=True)
+    scorer = SimpleScorer(scorer_client, _StubTokenizer(), verbose=True, threshold=0.5, activations=True)
+
+    def save_explanation(result):
+        with open(os.path.join(explanation_dir, f"{result.record.feature}.txt"), "w") as f:
+            json.dump(result.explanation, f)
+        result.record.explanation = result.explanation
+        return result.record
+
+    def save_scores(out):
+        prompts, _replies, result = out
+        rows = [{"examples": p, "scores": s, "max_activations": m}
+                for p, s, m in zip(prompts, result.scores, result.max_activations)]
+        with open(os.path.join(scores_dir, f"{result.record.feature}.json"), "w") as f:
+            json.dump(rows, f)
+        return result
+
+    pipeline = Pipeline(lambda collate: [records], process_wrapper(explainer, postprocess=save_explanation),
+                        process_wrapper(scorer, postprocess=save_scores))
+    reset_kernel_counts()
+    t0, c0 = time.perf_counter(), time.process_time()
+    asyncio.run(pipeline.run(max_processes=16))
+    wall_s, cpu_s = time.perf_counter() - t0, time.process_time() - c0
+    launches = kernel_counts()
+    names = sorted(os.listdir(explanation_dir))
+    if len(names) != len(records) or len(os.listdir(scores_dir)) != len(records):
+        raise AssertionError(f"{len(names)} explanation and {len(os.listdir(scores_dir))} score files "
+                             f"for {len(records)} records")
+    for r in records:
+        got = asyncio.run(explanation_loader(r, explanation_dir)).explanation
+        with open(os.path.join(scores_dir, f"{r.feature}.json")) as f:
+            rows = json.load(f)
+        if got != "tokens of a random subject" or not rows or any(row["scores"] != [1, 0, 2, 3, 1] for row in rows):
+            raise AssertionError(f"record {r.feature}: explanation {got!r}, scores {rows[:1]}")
+    if any(launches.values()):
+        raise AssertionError(f"the explain/score phase launched kernels: {launches}")
+    emit({"phase": "explain_score_path", "note": "smoke readings, stub clients in process",
+          "records": len(records), "explainer_calls": explainer_client.calls, "scorer_calls": scorer_client.calls,
+          "wall_s": wall_s, "records_per_s": len(records) / wall_s, "host_cpu_share": cpu_s / wall_s,
+          "files": {"explanations": len(names), "scores": len(records)}, "launches": launches, "card": card})
+    return {"launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card", file=sys.stderr)
@@ -2143,10 +2617,19 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work_dir:
         cache = phase_cache_path(dev, card, work_dir)
         loaded = phase_loader_path(card, cache.pop("cache_dir"), cache.pop("hook"), cache.pop("tokens"))
+        explained = phase_explain_score_path(card, loaded["records"], work_dir)
+    # The stats phase needs only each record's feature: drop the examples
+    # (about a million Python objects and their arrays) before the
+    # attribution phase, whose host-bound run they slow.
+    for r in loaded["records"]:
+        r.examples = r.train = None
+    gc.collect()
     torch.cuda.empty_cache()
     attribution = phase_attribution_path(dev, card)
-    stats = phase_stats_path(dev, card, attribution.pop("model"), attribution.pop("sae"),
-                             loaded["records"], loaded["selected"])
+    model, sae = attribution.pop("model"), attribution.pop("sae")
+    general = phase_general_attribution_path(dev, card, model, sae)
+    stats = phase_stats_path(dev, card, model, sae, loaded["records"], loaded["selected"])
+    del model, sae
     loader_launches = loaded["launches"]
     del loaded
     gc.collect()
@@ -2155,8 +2638,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     image = phase_image_cache_path(dev, card)
-    runs = (cache["launches"], loader_launches, attribution["launches"], stats["launches"],
-            train["launches"], image["launches"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    clip = phase_clip_path(dev, card)
+    runs = (cache["launches"], loader_launches, explained["launches"], attribution["launches"],
+            general["launches"], stats["launches"], train["launches"], image["launches"], clip["launches"])
     total = {name: sum(run[name] for run in runs) for name in runs[0]}
     k2, splice, dvals = attribution["k2"], attribution["splice"], train["dvals"]
     bwd_launches = {part: total[f"flash_attention_bwd_{part}"] for part in ("delta", "dkdv", "dq")}
@@ -2166,7 +2652,8 @@ def main() -> int:
          "replaces": "multimodal_sae_tpu/ops/pallas_topk.py:48",
          "launches": total["block_max"], "max_abs_err": k1["max_abs_err"],
          "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
-         "bound_by": "bytes", "library_ms": k1["library_ms"], "image_step": k1["image_step"]},
+         "bound_by": "bytes", "library_ms": k1["library_ms"], "image_step": k1["image_step"],
+         "prompt_step": k1["prompt_step"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "multimodal_sae_tpu_torch/csrc/flash_attention.cu",
          "replaces": "multimodal_sae_tpu/models/llama.py:341",
@@ -2180,7 +2667,9 @@ def main() -> int:
          "launches": bwd_launches["delta"] + bwd_launches["dkdv"] + bwd_launches["dq"],
          "launches_by_kernel": bwd_launches, "max_abs_err": k3_bwd["max_abs_err"],
          "ms": k3_bwd["ms"], "plain_ms": k3_bwd["plain_ms"], "bound_ms": k3_bwd["bound_ms"],
-         "bound_by": k3_bwd["bound_by"], "library_ms": k3_bwd["library_ms"]},
+         "bound_by": k3_bwd["bound_by"], "library_ms": k3_bwd["library_ms"],
+         "one_prompt": {key: general["k3_bwd_b1"][key] for key in ("shape", "max_abs_err", "ms", "plain_ms",
+                                                                 "bound_ms", "bound_by", "library_ms")}},
         {"name": "gather_rows", "route": "cuda",
          "source": "multimodal_sae_tpu_torch/csrc/gather_rows.cu",
          "replaces": "multimodal_sae_tpu/ops/pallas_gather.py:50",
@@ -2198,7 +2687,11 @@ def main() -> int:
          "replaces": "multimodal_sae_tpu/ops/sparse_decode.py:132",
          "launches": total["decode_dvals"], "max_abs_err": dvals["max_abs_err"],
          "ms": dvals["kernel_ms"], "plain_ms": dvals["plain_ms"], "bound_ms": dvals["bound_ms"],
-         "bound_by": dvals["bound_by"], "library_ms": None},
+         "bound_by": dvals["bound_by"], "library_ms": None,
+         "general_path": {"tokens": general["dvals"]["tokens"], "k": general["dvals"]["k"],
+                          "max_abs_err": general["dvals"]["max_abs_err"], "ms": general["dvals"]["kernel_ms"],
+                          "plain_ms": general["dvals"]["plain_ms"], "bound_ms": general["dvals"]["bound_ms"],
+                          "bound_by": general["dvals"]["bound_by"], "library_ms": None}},
     ]}
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit(kernels_line)

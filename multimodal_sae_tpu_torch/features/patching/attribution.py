@@ -16,7 +16,10 @@ splice it with f ablated (corrupted), and accumulate
   and one backward gives each feature its own gradient.
 * The general path (several hookpoints, or a model without
   `forward_from_layer`) runs the full spliced forward and backward once per
-  feature.  The JAX package may vmap it; the results are the same.
+  feature, with the feature ablated at every hookpoint, as the reference
+  does.  With several splices the gradient at a lower one runs back
+  through every splice above it (see `sae_splice_intervention`).  The JAX
+  package may vmap chunks of `feature_batch`; the results are the same.
 """
 
 from __future__ import annotations
@@ -183,19 +186,17 @@ def general_attribution_maps(
     metric: Callable,
     indices,
     progress: bool = True,
+    mark: Optional[Callable[[str], None]] = None,
 ) -> Dict[str, List[np.ndarray]]:
-    """The full-forward formulation: per feature, the spliced forward with
-    that feature ablated at every hookpoint, and the gradient at each splice.
-    The clean splice does not depend on the feature and runs once.
-
-    One hookpoint only: with several, the gradient runs through the upper
-    splice's encode and decode, a path not yet held against the JAX package
-    (ROADMAP.md §1), so it is refused."""
-    if len(sae_dict) != 1:
-        raise NotImplementedError(
-            "the general attribution path over several hookpoints is not ported yet: ROADMAP.md §1 "
-            "(it differentiates the upper splice's decode, whose backward came with the training slice)"
-        )
+    """The full-forward formulation (the general branch of the JAX
+    package's `Attribution.get_attribution`): per feature, the spliced
+    forward with that feature ablated at every hookpoint, and the gradient
+    at each splice.  The clean splice does not depend on the feature and
+    runs once.  `mark(stage)`, when given, is called after the "clean"
+    forward and after each feature's "forward", "backward" and "saliency"
+    stages."""
+    set_precision()
+    mark = mark or (lambda stage: None)
     names = tuple(sae_dict)
     B, S = np.asarray(batch["input_ids"]).shape
     zeros = {
@@ -204,16 +205,22 @@ def general_attribution_maps(
     }
     with torch.no_grad():
         _, clean = spliced_forward_with_delta(model, batch, sae_dict, zeros, off_feature=None)
+    mark("clean")
     pbar = _progress(len(indices), progress)
     out = collections.defaultdict(list)
     for f in np.asarray(indices):
         deltas = {name: z.clone().requires_grad_() for name, z in zeros.items()}
         logits, corrupted = spliced_forward_with_delta(model, batch, sae_dict, deltas, off_feature=int(f))
-        grads = torch.autograd.grad(metric(logits), [deltas[name] for name in names])
+        value = metric(logits)
+        mark("forward")
+        grads = torch.autograd.grad(value, [deltas[name] for name in names])
+        mark("backward")
         with torch.no_grad():
-            for name, grad in zip(names, grads):
-                sal = ((clean[name] - corrupted[name]) * grad).sum(-1)
-                out[name].append(sal.float().cpu().numpy())
+            sals = [((clean[name] - corrupted[name].detach()) * grad).sum(-1) for name, grad in zip(names, grads)]
+        del logits, corrupted, value, grads
+        for name, sal in zip(names, sals):
+            out[name].append(sal.float().cpu().numpy())
+        mark("saliency")
         if pbar:
             pbar.update(1)
     return dict(out)
@@ -257,7 +264,8 @@ class Attribution:
         device: DeviceLike = None,
     ) -> None:
         # feature_batch 0 = auto (by prompt length) on the fast path; the
-        # general path runs one feature at a time whatever it is.
+        # general path (several SAEs) runs one feature at a time whatever it
+        # is, with the JAX package's results at any width.
         self.model = model
         self.tokenizer = tokenizer
         self.feature_batch = feature_batch

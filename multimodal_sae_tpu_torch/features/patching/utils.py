@@ -28,13 +28,20 @@ def get_logit_diff(logits: torch.Tensor, answer_token_indices: torch.Tensor) -> 
 
 def sae_splice_intervention(sae: Sae, off_feature: Optional[int] = None) -> Callable:
     """Intervention replacing a layer output with its SAE reconstruction,
-    with latent `off_feature` zeroed before the top-k when given."""
+    with latent `off_feature` zeroed before the top-k when given.
+
+    Differentiable in h: below another splice (the general path over several
+    hookpoints) the gradient runs back through the decode's values (K2's
+    dvals mode on CUDA), the top-k's selected values and the encoder
+    product.  The zeroing is out of place, since the ReLU's backward reads
+    its output, and gives the reference's `latents * mask` bit for bit
+    (post-ReLU latents are finite and >= 0)."""
     params, k = sae.params, sae.cfg.k
 
     def intervention(h: torch.Tensor) -> torch.Tensor:
         latents = pre_acts(params, h.reshape(-1, h.shape[-1]))
         if off_feature is not None:
-            latents[:, off_feature] = 0.0
+            latents = latents.index_fill(1, torch.tensor([off_feature], device=latents.device), 0.0)
         top_acts, top_indices = select_topk(latents, k)
         return decode(params, top_acts, top_indices).reshape(h.shape).to(h.dtype)
 

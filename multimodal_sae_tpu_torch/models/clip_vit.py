@@ -18,7 +18,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -107,7 +107,11 @@ def _patchify(pixel_values: torch.Tensor, patch: int) -> torch.Tensor:
     return x.reshape(B, gh * gw, C * patch * patch)
 
 
-def clip_attention(x: torch.Tensor, lp: Dict[str, torch.Tensor], num_heads: int) -> torch.Tensor:
+def clip_attention(
+    x: torch.Tensor, lp: Dict[str, torch.Tensor], num_heads: int, mask: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Self-attention of one CLIP layer; `mask`, when given, is added to the
+    fp32 scores (the text tower's causal mask)."""
     B, S, D = x.shape
     hd = D // num_heads
     q = F.linear(x, lp["q_proj"]) + lp["q_bias"]
@@ -117,6 +121,8 @@ def clip_attention(x: torch.Tensor, lp: Dict[str, torch.Tensor], num_heads: int)
     k = k.view(B, S, num_heads, hd).transpose(1, 2)
     v = v.view(B, S, num_heads, hd).transpose(1, 2)
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    if mask is not None:
+        scores = scores + mask
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     out = torch.matmul(probs, v).transpose(1, 2).reshape(B, S, D)
     return F.linear(out, lp["out_proj"]) + lp["out_bias"]

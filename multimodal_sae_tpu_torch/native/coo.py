@@ -1,10 +1,15 @@
 """ctypes bindings for the host-side COO kernels (`native/coo.cpp`, a copy of
 the JAX package's), built with g++ on first use into the port's build
-directory (multimodal_sae_tpu/native/coo.py)."""
+directory, with numpy fallbacks (multimodal_sae_tpu/native/coo.py).
+
+`MMSAE_DISABLE_NATIVE=1` forces the numpy paths, and a failed build falls
+back to them, as in the JAX package; both give the same triples and
+partitions."""
 
 from __future__ import annotations
 
 import ctypes
+import logging
 import mmap
 import os
 import subprocess
@@ -17,7 +22,10 @@ from ..kernels import BUILD_DIR, library_path
 
 _SRC = Path(__file__).resolve().parent / "coo.cpp"
 
+logger = logging.getLogger(__name__)
+
 _lib = None
+_build_failed = False
 
 
 def populated_empty(shape, dtype) -> np.ndarray:
@@ -52,14 +60,23 @@ def _build(lib_path: Path) -> None:
     os.replace(tmp, lib_path)
 
 
-def _load() -> ctypes.CDLL:
-    global _lib
+def _load() -> Optional[ctypes.CDLL]:
+    """The library, or None for the numpy paths: when `MMSAE_DISABLE_NATIVE`
+    is "1", or when building or loading it failed (tried once a process)."""
+    global _lib, _build_failed
+    if os.environ.get("MMSAE_DISABLE_NATIVE") == "1" or _build_failed:
+        return None
     if _lib is not None:
         return _lib
     lib_path = library_path(_SRC)
-    if not lib_path.exists():
-        _build(lib_path)
-    lib = ctypes.CDLL(str(lib_path))
+    try:
+        if not lib_path.exists():
+            _build(lib_path)
+        lib = ctypes.CDLL(str(lib_path))
+    except (RuntimeError, OSError) as e:
+        _build_failed = True
+        logger.warning(f"native COO extraction unavailable, using the numpy paths: {e}")
+        return None
     i64p = ctypes.POINTER(ctypes.c_int64)
     i32p = ctypes.POINTER(ctypes.c_int32)
     f32p = ctypes.POINTER(ctypes.c_float)
@@ -121,7 +138,20 @@ def coo_extract_topk(
             raise TypeError("out buffers must be int64 locations and float32 activations")
         if out_loc.shape[0] < cap or out_act.shape[0] < cap:
             raise ValueError(f"out buffers hold fewer than {cap} entries")
-    else:
+    if lib is None:
+        mask = np.abs(vals) > threshold
+        if filter_ids is not None:
+            mask &= np.isin(idx, filter_ids)
+        b, s, j = np.nonzero(mask)
+        n = b.shape[0]
+        if out is None:
+            out_loc, out_act = np.empty((n, 3), dtype=np.int64), np.empty((n,), dtype=np.float32)
+        out_loc[:n, 0] = b + row_offset
+        out_loc[:n, 1] = s
+        out_loc[:n, 2] = idx[b, s, j]
+        out_act[:n] = vals[mask]
+        return n if out is not None else (out_loc, out_act)
+    if out is None:
         out_loc = populated_empty((cap, 3), np.int64)
         out_act = populated_empty((cap,), np.float32)
     if filter_ids is not None:
@@ -151,7 +181,8 @@ def coo_partition_splits(
     boundaries[i+1]); a list of (locations_i, activations_i) per split,
     stable within each split.  `scratch` (locations (cap, 3) int64,
     activations (cap,) f32), when large enough, holds the output: the
-    returned views alias it, so consume them before the next call."""
+    returned views alias it, so consume them before the next call.  The
+    numpy path returns copies."""
     lib = _load()
     locations = np.ascontiguousarray(locations, dtype=np.int64)
     activations = np.ascontiguousarray(activations, dtype=np.float32)
@@ -160,6 +191,12 @@ def coo_partition_splits(
     N = len(locations)
     if locations.shape != (N, 3) or activations.shape != (N,):
         raise ValueError(f"need locations (N, 3) and activations (N,), got {locations.shape}, {activations.shape}")
+    if lib is None:
+        feats = locations[:, 2]
+        return [
+            (locations[m], activations[m])
+            for m in ((feats >= boundaries[i]) & (feats < boundaries[i + 1]) for i in range(n_splits))
+        ]
     counts = np.zeros(n_splits, dtype=np.int64)
     if (
         scratch is not None

@@ -25,6 +25,7 @@ import jax.numpy as jnp
 import torch
 
 from multimodal_sae_tpu.config import SaeConfig as JaxSaeConfig
+from multimodal_sae_tpu.features.patching.attribution import Attribution as JaxAttribution
 from multimodal_sae_tpu.features.patching.attribution import fast_attribution_maps as jax_fast_attribution_maps
 from multimodal_sae_tpu.features.patching.utils import get_logit_diff as jax_get_logit_diff
 from multimodal_sae_tpu.models.llama import LlamaConfig as JaxLlamaConfig
@@ -268,14 +269,24 @@ def test_entry_points_turn_tf32_off(jax_llama, tmp_path, monkeypatch, entry):
 
 def test_general_path_on_a_padded_batch(jax_llama):
     """The general path with one splice equals the fast path on a
-    left-padded batch.  Two splices at once differentiate the upper splice's
-    decode, a path not yet held against the JAX package: refused."""
+    left-padded batch.  With two splices, whose gradient at the lower one
+    runs through the upper splice's decode, it equals the JAX package's
+    general branch of `Attribution.get_attribution` (vmapped 2 wide)."""
     model = LlamaModel(llama_params_from_jax(jax_llama, device="cpu"), LlamaConfig(**TINY, flash_attention=True))
-    _, sae = _sae_pair()
+    jsae, sae = _sae_pair()
     batch = _batch(True)
     metric = partial(get_logit_diff, answer_token_indices=torch.as_tensor(ANSWERS))
-    with pytest.raises(NotImplementedError, match="several hookpoints"):
-        general_attribution_maps(model, {"layers.0": sae, HOOK: sae}, batch, metric, [0], progress=False)
+    two = general_attribution_maps(model, {"layers.0": sae, HOOK: sae}, batch, metric, [0, 5], progress=False)
+    ref = object.__new__(JaxAttribution)
+    ref.model, _ = _models(jax_llama, True)
+    ref.sae_dict, ref.data, ref.batch, ref.feature_batch = {"layers.0": jsae, HOOK: jsae}, [0, 1], batch, 2
+    ref.metric = partial(jax_get_logit_diff, answer_token_indices=jnp.asarray(ANSWERS))
+    ref = ref.get_attribution(indices=[0, 5])
+    for name in ("layers.0", HOOK):
+        assert len(two[name]) == 2
+        for g, r in zip(two[name], ref[name]):
+            np.testing.assert_allclose(g, np.asarray(r), **TOL)
+            assert not g[1, :6].any()
     one = general_attribution_maps(model, {HOOK: sae}, batch, metric, [0, 5], progress=False)[HOOK]
     fast = fast_attribution_maps(model, HOOK, sae, batch, metric, [0, 5], progress=False)[HOOK]
     for g, f in zip(one, fast):

@@ -41,6 +41,45 @@ LOADER_MODULES = (
     "multimodal_sae_tpu_torch.features.split_index",
     "multimodal_sae_tpu_torch.features.stats",
 )
+EXPLAIN_MODULES = (
+    "multimodal_sae_tpu_torch.agents",
+    "multimodal_sae_tpu_torch.agents.utils",
+    "multimodal_sae_tpu_torch.agents.explainers",
+    "multimodal_sae_tpu_torch.agents.explainers.explainer",
+    "multimodal_sae_tpu_torch.agents.explainers.image_explainer",
+    "multimodal_sae_tpu_torch.agents.explainers.image_explainer.image_explainer",
+    "multimodal_sae_tpu_torch.agents.explainers.image_explainer.prompts",
+    "multimodal_sae_tpu_torch.agents.explainers.simple",
+    "multimodal_sae_tpu_torch.agents.explainers.simple.prompt_builder",
+    "multimodal_sae_tpu_torch.agents.explainers.simple.prompts",
+    "multimodal_sae_tpu_torch.agents.explainers.simple.simple",
+    "multimodal_sae_tpu_torch.agents.scorers",
+    "multimodal_sae_tpu_torch.agents.scorers.clip",
+    "multimodal_sae_tpu_torch.agents.scorers.clip.clip_scorer",
+    "multimodal_sae_tpu_torch.agents.scorers.segment",
+    "multimodal_sae_tpu_torch.agents.scorers.segment.label_refiner",
+    "multimodal_sae_tpu_torch.agents.scorers.simple",
+    "multimodal_sae_tpu_torch.agents.scorers.simple.prompt",
+    "multimodal_sae_tpu_torch.agents.scorers.simple.simple_scorer",
+    "multimodal_sae_tpu_torch.clients",
+    "multimodal_sae_tpu_torch.clients.client",
+    "multimodal_sae_tpu_torch.clients.local",
+    "multimodal_sae_tpu_torch.clients.openai",
+    "multimodal_sae_tpu_torch.clients.openrouter",
+    "multimodal_sae_tpu_torch.clients.outlines",
+    "multimodal_sae_tpu_torch.clients.sglang",
+    "multimodal_sae_tpu_torch.launch.explain._writer",
+    "multimodal_sae_tpu_torch.launch.explain.explain",
+    "multimodal_sae_tpu_torch.launch.explain.explain_images",
+    "multimodal_sae_tpu_torch.launch.features.image_activations",
+    "multimodal_sae_tpu_torch.launch.score.clip_score",
+    "multimodal_sae_tpu_torch.launch.score.score",
+    "multimodal_sae_tpu_torch.logger",
+    "multimodal_sae_tpu_torch.models.clip_full",
+    "multimodal_sae_tpu_torch.native.coo",
+    "multimodal_sae_tpu_torch.pipeline",
+    "multimodal_sae_tpu_torch.prompt",
+)
 TRAIN_MODULES = (
     "multimodal_sae_tpu_torch.__main__",
     "multimodal_sae_tpu_torch.ops.adam",
@@ -73,7 +112,8 @@ def test_importing_every_module_leaves_jax_unloaded():
         "import multimodal_sae_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        f"assert set({ATTRIBUTION_MODULES + IMAGE_MODULES + LOADER_MODULES + TRAIN_MODULES!r}) <= set(names)\n"
+        f"assert set({ATTRIBUTION_MODULES + IMAGE_MODULES + LOADER_MODULES + TRAIN_MODULES + EXPLAIN_MODULES!r})"
+        " <= set(names)\n"
         "import chip_smoke\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert len(names) > 20 and not bad, (len(names), bad)\n"
@@ -110,6 +150,34 @@ def test_loader_modules_import_without_pil_or_safetensors():
     assert r.returncode == 0, r.stderr[-2000:]
 
 
+BLOCKED = ("PIL", "pydantic", "transformers", "datasets", "safetensors", "torchmetrics", "httpx", "openai")
+
+
+def test_explain_score_attribution_and_clip_modules_import_with_host_libraries_blocked():
+    """The card's machine has none of these: every module this slice added
+    or changed imports without them, its CLIs included, and the general
+    attribution path and the CLIP tower run on random weights."""
+    code = (
+        "import importlib, sys\n"
+        f"for name in {BLOCKED!r}: sys.modules[name] = None\n"
+        f"for n in {EXPLAIN_MODULES + ATTRIBUTION_MODULES!r}: importlib.import_module(n)\n"
+        "import torch\n"
+        "from multimodal_sae_tpu_torch.models import clip_full\n"
+        "from multimodal_sae_tpu_torch.models.clip_vit import ClipVisionConfig\n"
+        "v = ClipVisionConfig(hidden_size=8, intermediate_size=8, num_hidden_layers=1, num_attention_heads=2,"
+        " image_size=4, patch_size=2, projection_dim=4)\n"
+        "t = clip_full.ClipTextConfig(vocab_size=10, hidden_size=8, intermediate_size=8, num_hidden_layers=1,"
+        " num_attention_heads=2, max_position_embeddings=5, projection_dim=4, eos_token_id=9)\n"
+        "p = clip_full.init_clip_model_params(v, t, torch.Generator().manual_seed(0), torch.device('cpu'))\n"
+        "s = clip_full.clip_score(p, v, t, torch.zeros(2, 3, 4, 4), torch.tensor([[1, 9, 0], [2, 3, 9]]))\n"
+        "assert s.shape == (2,) and bool(torch.isfinite(s).all())\n"
+        f"assert not [m for m in sys.modules if m.split('.')[0] in {BLOCKED!r} and sys.modules[m]]\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -127,6 +195,7 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
     from multimodal_sae_tpu_torch.launch.cache import cache_image as image_cli
     from multimodal_sae_tpu_torch.launch.utils import load_subject_model
     from multimodal_sae_tpu_torch.models import LlamaConfig, LlamaModel, LlavaNextConfig, LlavaNextModel, SyntheticActivationSource
+    from multimodal_sae_tpu_torch.models.clip_full import clip_metric
     from multimodal_sae_tpu_torch.models.clip_vit import ClipVisionConfig
     from multimodal_sae_tpu_torch.models.llava_next import load_llava_next
     from multimodal_sae_tpu_torch.sae import Sae
@@ -155,6 +224,7 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
         lambda: stats.cos(torch.eye(4)),
         lambda: stats.logits([FeatureRecord(Feature("m", 0))], torch.eye(4), torch.eye(4)),
         lambda: stats.get_neighbors({"layers.0": None}, {"layers.0": [0]}),
+        lambda: clip_metric(str(tmp_path / "clip")),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
