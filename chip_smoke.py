@@ -135,7 +135,32 @@ Phases; any failure raises and ends the run with a non-zero exit code:
    seeded pixel arrays and 64 id rows: ms per image and per text, 8 of each
    against the CPU within CLIP_L2_REL, the scores against max(0, 100 cos)
    of the embeddings in float64; no kernel launched;
-11. a `kernels` JSON line, the card line, and the result line.
+11. steering_path, after the stats phase, on the attribution phase's
+   subject and SAE: `SteeringController` (stub chat template: LLaMA-3's
+   headers around 64 seeded ids, 74 tokens), 64 features in one chunk (16
+   from the last prompt token's top-k, 48 seeded), clamp 50, 128 greedy
+   tokens, counted; the same steered and baseline generates again with
+   marks (prefill ms, decode ms a step, the prefill's and the decode
+   steps' launches apart: K3 32 and K1 2, K2 1 per token chunk of the clamp
+   in the prefill, nothing in a decode step), 8 features clamped at every
+   step (16 tokens), a sampled run (temperature 0.6, top_p 0.9, 32 tokens);
+   checks: each generated token against a cache-free forward's argmax
+   wherever its top-2 gap exceeds STEER_NEAR_TIE (baseline, steered and
+   every-step rows), 4 features steered alone against their batched rows
+   up to the first near tie, one token chunk of the clamp against its
+   plain chain (K1's top-k as sets, K2's decode within an fp32 bound),
+   and a reduced run (2 layers, fp32, 32 ids, 2 features, 16 tokens) on
+   the card against the CPU, the CPU replaying the card's clamp
+   selections; readings: 16 decode steps under torch.profiler, the decode
+   step's bound, K3 at the prefill shape (64, 32, 8, 74, 128);
+   image_steering_path, after the image cache phase: a random LLaVA-NeXT
+   at llama3-llava-next-8b widths with all 32 text layers and the LM head,
+   one 480 x 640 image (seeded pixels; `prepare_inputs` and the image
+   loader are stood in for, as the card's machine has no PIL) and a short
+   prompt (2,360 tokens), 8 features, 32 greedy tokens: the tower once per
+   generate, the launch counts, the cache-free check, K3 at
+   (8, 32, 8, 2,360, 128);
+12. a `kernels` JSON line, the card line, and the result line.
 
 Needs one CUDA card; exits non-zero without one.  Imports nothing of JAX.
 """
@@ -499,11 +524,11 @@ def phase_flash_attention(dev) -> dict:
     return result
 
 
-def _attention_case(fa, gen, dev, B, H, kvH, S, hd, valid) -> dict:
+def _attention_case(fa, gen, dev, B, H, kvH, S, hd, valid, phase: str = "flash_attention_image") -> dict:
     """K3 at one shape against its plain version on every row (pad queries
     included), timed (median of 5 repeats) beside its bound, the plain
     version and SDPA; `valid` gives each row's valid length (right pads), or
-    None for no mask."""
+    None for no mask.  The line is emitted under `phase`."""
     import torch.nn.functional as F
 
     scale = hd ** -0.5
@@ -526,7 +551,7 @@ def _attention_case(fa, gen, dev, B, H, kvH, S, hd, valid) -> dict:
     nbytes = (2 * B * H * S * hd + 2 * B * kvH * S * hd) * 2
     repeats = time_repeats(lambda: fa.flash_attention(q, k, v, pad_mask, scale))
     line = {
-        "phase": "flash_attention_image", "shape": [B, H, kvH, S, hd], "valid_lengths": valid,
+        "phase": phase, "shape": [B, H, kvH, S, hd], "valid_lengths": valid,
         "max_abs_err": err, "atol": K3_ATOL, "rtol": K3_RTOL,
         "ms": repeats["median"], "kernel_ms_repeats": repeats, "tflops": flops / repeats["median"] / 1e9,
         "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v, pad_mask, scale), iters=2, warmup=1),
@@ -1165,6 +1190,12 @@ def profile_chunk(step, feats: torch.Tensor) -> dict:
         step(feats)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    return summarize_profile(prof, wall_ms)
+
+
+def summarize_profile(prof, wall_ms: float) -> dict:
+    """Device time by kernel group of a finished torch.profiler run over
+    `wall_ms` of wall time, and the device's busy and idle shares of it."""
     kernels = {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0) or 0
@@ -2603,6 +2634,723 @@ def phase_explain_score_path(card: str, records, work_dir: str) -> dict:
     return {"launches": launches}
 
 
+STEER_NEAR_TIE = 0.125
+# Cache against no cache, and batched against sequential, on the bf16
+# subjects: a generated token must be the cache-free forward's argmax
+# wherever that forward's top-2 logit gap exceeds 0.125, four bf16 ulps at
+# the top logits' size (4 to 8: the random LM head gives logits a spread of
+# about 1.3).  The two forwards run other attention kernels (a decode step's
+# fp32-softmax matmuls over the cache against K3 over the whole sequence) and
+# other matmul shapes, each rounding to bf16 at every layer.  Every position
+# is compared; the ones under the margin are counted as skipped.
+REPLAY_NOISE_FACTOR = 4.0
+# The cache-free forward and a sequential generate take the clamp's top-k
+# selections that the checked generate made (recorded there with their
+# values, replayed token by token): at 131,072 latents the values near the
+# 256th lie about 1e-3 apart, closer than the bf16 noise between two
+# computations of a hidden state, and a swapped latent moves the clamp's
+# output by a whole decoder row.  Where a forward's own top-k would select
+# another set, the gap between its own k-th latent and the weakest replayed
+# pick must be explained by that noise: at most 4 times the token's largest
+# difference between the two computations' values of its replayed latents
+# (a swap needs the noise of two latents, the unrecorded one's bounded by
+# twice the largest recorded).
+REDUCED_NEAR_TIE = 1e-3
+# The reduced fp32 run: a token may differ between the card and the CPU only
+# from a step whose CPU-side top-2 logit gap is under 1e-3 (the two sides'
+# fp32 logits, about 5 in size, lie about 1e-5 apart).
+REDUCED_L2_REL = 1e-4
+# Its prefill's last logits: ||card - cpu|| <= 1e-4 * ||cpu|| (two layers of
+# fp32 sums in other orders, about 1e-6 relative apart).
+CHAT_HEAD = [128000, 128006, 882, 128007, 271]  # begin_of_text, user header, "\n\n"
+CHAT_TAIL = [128009, 128006, 78191, 128007, 271]  # eot, assistant header, "\n\n"
+EOT = 128009
+CLAMP = 50.0  # the steering CLI's default clamp value
+
+
+class _StubChat:
+    """A chat template and tokenizer for the card's machine, which has no
+    tokenizer library: the templated prompt is LLaMA-3's user and assistant
+    headers around fixed ids (with the image token before them when the
+    conversation holds an image); decoding writes the ids as numbers."""
+
+    eos_token_id = EOT
+
+    def __init__(self, prompt_ids, image_token=None):
+        self.prompt_ids, self.image_token = [int(t) for t in prompt_ids], image_token
+        self.tokenizer = self
+
+    def apply_chat_template(self, conversation, add_generation_prompt=False, tokenize=False):
+        return "<image>" if any(c.get("type") == "image" for c in conversation[0]["content"]) else ""
+
+    def __call__(self, text, **kw):
+        image = [self.image_token] if text == "<image>" else []
+        return {"input_ids": CHAT_HEAD + image + self.prompt_ids + CHAT_TAIL}
+
+    def batch_decode(self, ids, skip_special_tokens=True):
+        return [" ".join(str(int(t)) for t in row) for row in np.asarray(ids)]
+
+
+def _answer_ids(text: str, new: int, vocab: int) -> list:
+    """The token ids of one steering answer (`_StubChat` writes them as
+    numbers), checked: `new` ids in the vocabulary."""
+    ids = [int(t) for t in text.split()]
+    if len(ids) != new or not all(0 <= t < vocab for t in ids):
+        raise AssertionError(f"a steering answer has {len(ids)} ids, or one outside the vocabulary")
+    return ids
+
+
+def _timed_generate(model, batch, interventions, new: int, record=None, **kw):
+    """`model.generate` with CUDA events at its prefill and step marks and
+    the kernel counts at the prefill mark: (output, readings).  The counts
+    are set to 0 first.  With `record` (a list) the clamp's top-k
+    selections are appended to it (`_recording_topk`)."""
+    import contextlib
+
+    start = torch.cuda.Event(enable_timing=True)
+    events, at_prefill = [], {}
+
+    def mark(stage):
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        events.append(event)
+        if stage == "prefill":
+            at_prefill.update(kernel_counts())
+
+    recording = _recording_topk(record) if record is not None else contextlib.nullcontext()
+    with recording:
+        reset_kernel_counts()
+        start.record()
+        out = model.generate(batch, max_new_tokens=new, interventions=interventions, mark=mark, **kw)
+        torch.cuda.synchronize()
+        total = kernel_counts()
+    steps = sorted(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+    return out, {
+        "rows": out.shape[0], "prompt_tokens": out.shape[1] - new, "new_tokens": new,
+        "prefill_ms": start.elapsed_time(events[0]),
+        "step_ms": {"median": steps[len(steps) // 2], "min": steps[0], "max": steps[-1], "steps": len(steps)}
+        if steps else None,
+        "launches": {"prefill": dict(at_prefill), "decode": {k: total[k] - at_prefill[k] for k in total}},
+    }
+
+
+def _expect_launches(got: dict, want: dict, what: str) -> None:
+    want = {name: want.get(name, 0) for name in got}
+    if got != want:
+        raise AssertionError(f"{what}: kernel launches {got}, expected {want}")
+
+
+def _recording_topk(record: list):
+    """A context in which each call of the steering clamp's top-k appends
+    its (indices, values), (tokens, k) each, on the host, to `record`."""
+    import contextlib
+
+    from multimodal_sae_tpu_torch.features import steering
+
+    real = steering.select_topk
+
+    def recorded(latents, k):
+        out = real(latents, k)
+        record.append((out.top_indices.cpu(), out.top_acts.cpu()))
+        return out
+
+    @contextlib.contextmanager
+    def patched():
+        steering.select_topk = recorded
+        try:
+            yield record
+        finally:
+            steering.select_topk = real
+
+    return patched()
+
+
+def _replaying_topk(picks):
+    """A context in which the steering clamp's top-k takes its selections
+    from `picks` = (indices, values), (N, k) each, recorded by
+    `_recording_topk`, token after token in the order the clamp meets them;
+    the selected values are the forward's own latents at those indices.
+    It yields a dict that gathers, over the calls, the tokens whose own
+    top-k would select another set, the largest gap there between the own
+    k-th latent and the weakest replayed pick as a multiple of the token's
+    noise (the largest difference between its recorded and its own values
+    at the replayed indices), and that noise's largest share of the k-th
+    latent.  It raises past REPLAY_NOISE_FACTOR."""
+    import contextlib
+
+    from multimodal_sae_tpu_torch.features import steering
+    from multimodal_sae_tpu_torch.sae.model import EncoderOutput
+
+    real, cursor = steering.select_topk, [0]
+    stats = {"own_selection_differs": 0, "largest_gap_over_noise": 0.0, "largest_noise_of_kth": 0.0}
+    picks_idx, picks_vals = picks
+
+    def replay(latents, k):
+        n = latents.shape[0]
+        idx = picks_idx[cursor[0]:cursor[0] + n].to(latents.device)
+        recorded = picks_vals[cursor[0]:cursor[0] + n].to(latents.device)
+        if idx.shape[0] != n:
+            raise AssertionError("the replayed top-k selections ran out")
+        cursor[0] += n
+        vals = latents.gather(-1, idx.long())
+        own = torch.topk(latents, k, dim=-1)
+        rows = (own.indices.sort(-1).values != idx.long().sort(-1).values).any(-1)
+        kth = own.values[:, -1]
+        noise = (vals - recorded).abs().max(-1).values
+        gap = (kth - vals.min(-1).values)[rows]
+        over = gap / noise[rows].clamp_min(torch.finfo(gap.dtype).tiny)
+        stats["own_selection_differs"] += int(rows.sum())
+        stats["largest_gap_over_noise"] = max(stats["largest_gap_over_noise"], over.max().item() if len(over) else 0.0)
+        stats["largest_noise_of_kth"] = max(stats["largest_noise_of_kth"], (noise / kth).max().item())
+        return EncoderOutput(vals, idx)
+
+    @contextlib.contextmanager
+    def patched():
+        steering.select_topk = replay
+        try:
+            yield stats
+        finally:
+            steering.select_topk = real
+        if cursor[0] != picks_idx.shape[0]:
+            raise AssertionError(f"{picks_idx.shape[0] - cursor[0]} replayed top-k selections were not taken")
+        if stats["largest_gap_over_noise"] > REPLAY_NOISE_FACTOR:
+            raise AssertionError(f"a replayed top-k pick lies {stats['largest_gap_over_noise']} times its token's "
+                                 f"noise below the forward's own k-th latent")
+
+    return patched()
+
+
+def _picks(record: list, rows: int, prompt: int):
+    """A generate's recorded clamp selections as (indices, values), each
+    (rows, positions, k): the prefill's calls (rows x prompt tokens, in
+    chunks) and then one call of `rows` tokens a decode step, if the clamp
+    ran in the decode steps."""
+    out = []
+    for part in zip(*record):
+        flat = torch.cat(part)
+        pre = flat[:rows * prompt].view(rows, prompt, -1)
+        steps = flat[rows * prompt:].view(-1, rows, flat.shape[-1]).transpose(0, 1)
+        out.append(torch.cat([pre, steps], dim=1))
+    return tuple(out)
+
+
+def _merge_replays(replays: list) -> dict:
+    return {"own_selection_differs": sum(r["own_selection_differs"] for r in replays),
+            "largest_gap_over_noise": max((r["largest_gap_over_noise"] for r in replays), default=0.0),
+            "largest_noise_of_kth": max((r["largest_noise_of_kth"] for r in replays), default=0.0),
+            "noise_factor": REPLAY_NOISE_FACTOR}
+
+
+def _cache_free_top2(params, cfg, seqs: torch.Tensor, new: int, clamp=None, embeds=None, rows_at_once: int = 16):
+    """(argmax, gap, replay) of a cache-free forward over the prompt and the
+    generated ids but the last, at the positions that predicted each
+    generated token: the top-1 id, the top-2 logit gap (B, new), and what
+    the replayed selections showed (`_replaying_topk`).  `clamp` = (hook,
+    sae, features, picks): the hookpoint's clamp for each row's feature at
+    the positions `picks` (`_picks`: (B, P, k) indices and values) covers
+    (the prompt's, for a prefill-only generate, or every position), taking
+    those selections.  With `embeds` (the prompt's embeddings, as a LLaVA
+    subject makes them) the generated ids are embedded and appended."""
+    from multimodal_sae_tpu_torch.features.steering import clamp_features_max_batched
+    from multimodal_sae_tpu_torch.models.llama import lm_head_logits, llama_forward
+
+    B, T = seqs.shape
+    S_p = T - new
+    argmax, gap, replayed = [], [], []
+    for r0 in range(0, B, rows_at_once):
+        rows = slice(r0, min(B, r0 + rows_at_once))
+        ivs = None
+        if clamp is not None:
+            hook, sae, feats, picks = clamp
+            fn = clamp_features_max_batched(sae, feats[rows], CLAMP)
+
+            def iv(h, fn=fn, picks=picks, rows=rows):
+                L = picks[0].shape[1]
+                with _replaying_topk(tuple(p[rows, :L].reshape(-1, p.shape[-1]) for p in picks)) as stats:
+                    out = fn(h[:, :L])
+                replayed.append(stats)
+                return torch.cat([out, h[:, L:]], dim=1)
+
+            ivs = {hook: iv}
+        kw = {"input_ids": seqs[rows, :-1]}
+        if embeds is not None:
+            kw = {"inputs_embeds": torch.cat([embeds[rows], params["embed_tokens"][seqs[rows, S_p:-1]]], dim=1)}
+        with torch.no_grad():
+            h = llama_forward(params, cfg, interventions=ivs, return_logits=False, return_hidden=True, **kw)["hidden"]
+            top = lm_head_logits(params, h[:, S_p - 1:]).float().topk(2, dim=-1)
+        argmax.append(top.indices[..., 0])
+        gap.append(top.values[..., 0] - top.values[..., 1])
+        del h, top
+    return torch.cat(argmax), torch.cat(gap), _merge_replays(replayed)
+
+
+def _check_cache_free(gen: torch.Tensor, argmax: torch.Tensor, gap: torch.Tensor, replay: dict, what: str) -> dict:
+    """Generated ids (B, new) against the cache-free argmax wherever its gap
+    exceeds STEER_NEAR_TIE, up to and including each row's first stop id
+    (after it the loop writes the fill id)."""
+    stopped = torch.cumsum((gen == EOT).int(), dim=1)
+    live = (stopped - (gen == EOT).int()) == 0
+    compared = live & (gap > STEER_NEAR_TIE)
+    wrong = compared & (argmax != gen)
+    if bool(wrong.any()):
+        b, i = (int(x) for x in torch.nonzero(wrong)[0])
+        raise AssertionError(f"{what}: row {b} step {i} generated {int(gen[b, i])}, the cache-free forward's argmax "
+                             f"is {int(argmax[b, i])} with a top-2 gap of {float(gap[b, i])}")
+    return {"positions": int(live.sum()), "compared": int(compared.sum()),
+            "skipped_near_ties": int((live & ~compared).sum()), "near_tie": STEER_NEAR_TIE,
+            "disagreements_under_the_margin": int((live & ~compared & (argmax != gen)).sum()),
+            "replayed_selections": replay}
+
+
+def _decode_bound(model_params: dict, cfg, rows: int, prompt: int, new: int) -> dict:
+    """The least time of a decode step on the card, averaged over the steps
+    of a generate: the bytes it must read (every layer's weights, the final
+    norm and the LM head once, the rows' embedding rows, and the k and v of
+    every live cache slot) over HBM_BYTES_PER_S, against its operations
+    (2 per weight per row) over BF16_FLOPS."""
+    layer_bytes = sum(t.numel() * t.element_size() for layer in model_params["layers"] for t in layer.values())
+    head = model_params.get("lm_head", model_params["embed_tokens"])
+    weights = layer_bytes + head.numel() * head.element_size() + model_params["norm"].numel() * 2
+    slot = 2 * cfg.num_hidden_layers * rows * cfg.num_key_value_heads * cfg.head_dim_ * head.element_size()
+    mean_live = prompt + new / 2
+    nbytes = weights + rows * cfg.hidden_size * 2 + slot * mean_live
+    flops = 2 * (layer_bytes + head.numel() * head.element_size()) / head.element_size() * rows
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    return {"bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "weight_gb": weights / 1e9, "mean_cache_read_gb": slot * mean_live / 1e9}
+
+
+def _profile_decode(model, batch, interventions, steps: int, **kw) -> dict:
+    """`steps` decode steps of one generate under torch.profiler (from the
+    prefill's mark to the last step's, each end synchronised): device time
+    by kernel group and the device's idle share of the window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    state = {"steps": 0}
+
+    def mark(stage):
+        if stage == "prefill":
+            torch.cuda.synchronize()
+            prof.start()
+            state["t0"] = time.perf_counter()
+            return
+        state["steps"] += 1
+        if state["steps"] == steps:
+            torch.cuda.synchronize()
+            state["wall_ms"] = (time.perf_counter() - state["t0"]) * 1e3
+            prof.stop()
+
+    model.generate(batch, max_new_tokens=steps + 1, interventions=interventions, mark=mark, **kw)
+    if "wall_ms" not in state:
+        raise AssertionError(f"the profiled generate stopped before {steps} decode steps")
+    return {"decode_steps": steps, **summarize_profile(prof, state["wall_ms"])}
+
+
+def _check_clamp_chunk(sae, x: torch.Tensor, feats_of_tokens: torch.Tensor) -> dict:
+    """One token chunk of the clamp on the card against its plain chain on
+    the same pre-activations: the top-k (K1's two block-max levels) against
+    `torch.topk` as sets, and the decode (K2's decode mode) within its fp32
+    bound of `gather_decode_plain` of the same selection; each kernel timed
+    at this chunk beside its bound, its plain version and the library call."""
+    import torch.nn.functional as F
+
+    from multimodal_sae_tpu_torch.ops import block_max as bm, gather_rows as gr, top_k
+    from multimodal_sae_tpu_torch.sae import pre_acts
+
+    W, k = sae.params["W_dec"], sae.cfg.k
+    N, width, d = x.shape[0], W.shape[0], W.shape[1]
+    latents = pre_acts(sae.params, x)
+    latents[torch.arange(N, device=x.device), feats_of_tokens] = CLAMP
+    vals, idx = top_k(latents, k, assume_finite=True)
+    _check_topk_as_sets(latents, vals, idx, k)
+    got, ref = gr.gather_decode(idx, vals, W), gr.gather_decode_plain(idx, vals, W)
+    err_bound = 2 * k * 2.0 ** -24 * vals.abs().sum(-1).max().item() * W.abs().max().item()
+    err = (got - ref).abs().max().item()
+    if not (torch.isfinite(got).all() and err <= err_bound):
+        raise AssertionError(f"the clamp's decode is off by {err} (bound {err_bound})")
+    cand = latents.view(N, width // 64, 64).gather(
+        1, torch.topk(bm.block_max(latents, 64), k, dim=-1).indices[:, :, None].expand(N, k, 64)).reshape(N, k * 64)
+    levels = []
+    for inp, block in ((latents, 64), (cand, 8)):
+        n, w = inp.shape
+        levels.append({"shape": [n, w], "block": block, "ms": time_ms(lambda: bm.block_max(inp, block)),
+                       "plain_ms": time_ms(lambda: bm.block_max_plain(inp, block)),
+                       "library_ms": time_ms(lambda: torch.amax(inp.view(n, w // block, block), dim=-1)),
+                       "bound_ms": (n * w + n * w // block) * 4 / HBM_BYTES_PER_S * 1e3})
+    k1 = {key: sum(level[key] for level in levels) for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    k1.update(bound_by="bytes", levels=levels, max_abs_err=0.0, topk_as_sets=True)
+    idx_long, distinct = idx.long(), torch.unique(idx).numel()
+    k2 = {"tokens": N, "k": k, "distinct_rows": distinct, "max_abs_err": err, "err_bound": err_bound,
+          "ms": time_ms(lambda: gr.gather_decode(idx, vals, W)),
+          "plain_ms": time_ms(lambda: gr.gather_decode_plain(idx, vals, W), iters=3),
+          "library_ms": time_ms(lambda: F.embedding_bag(idx_long, W, per_sample_weights=vals, mode="sum")),
+          "bound_ms": (distinct * d * 4 + N * d * 4 + N * k * 8) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    del latents, cand, got, ref
+    torch.cuda.empty_cache()
+    return {"block_max": k1, "gather_decode": k2}
+
+
+def _reduced_steering(model, sae, dev, hook: str = "layers.0", layers: int = 2, S: int = 32, new: int = 16) -> dict:
+    """Steered generation on the card against the CPU at reduced depth: the
+    subject's first `layers` layers and its LM head in fp32 with eager
+    attention, the SAE at `hook`, one prompt of S ids on 2 rows steered by
+    2 features (the last token's top feature and one drawn with a seed),
+    `new` greedy tokens.  The card's clamp selections are recorded and the
+    CPU replays them (`_replaying_topk`: a latent that ties the k-th within
+    fp32 noise could otherwise be selected on one side only).  The
+    prefill's last logits must agree within REDUCED_L2_REL, and the ids up
+    to the first step whose CPU-side top-2 gap is under REDUCED_NEAR_TIE."""
+    import dataclasses
+
+    from multimodal_sae_tpu_torch.features import steering
+    from multimodal_sae_tpu_torch.models.llama import KVCache, LlamaModel, llama_forward
+    from multimodal_sae_tpu_torch.sae import Sae
+
+    cfg = dataclasses.replace(model.cfg, num_hidden_layers=layers, flash_attention=False)
+
+    def side(device):
+        p = {name: t.to(device=device, dtype=torch.float32) for name, t in model.params.items() if name != "layers"}
+        p["layers"] = [{name: t.to(device=device, dtype=torch.float32) for name, t in lp.items()}
+                       for lp in model.params["layers"][:layers]]
+        return LlamaModel(p, cfg), Sae(sae.d_in, sae.cfg, params={n: t.to(device) for n, t in sae.params.items()})
+
+    rng = np.random.default_rng(14)
+    ids = np.repeat(rng.integers(0, 128000, size=(1, S)), 2, axis=0)
+    sides = {"card": side(dev), "cpu": side("cpu")}
+    m_card, sae_card = sides["card"]
+    h = m_card.capture({"input_ids": ids[:1]}, [hook])[hook]
+    first = int(sae_card.encode(h[0, -1:]).top_indices[0, 0])
+    feats = [first, int(rng.choice(np.setdiff1d(np.arange(sae.num_latents), [first])))]
+    out, last_logits, picks, seconds = {}, {}, {"generate": [], "prefill": []}, {}
+
+    def selections(name, record):
+        if name == "card":
+            return _recording_topk(record)
+        return _replaying_topk(tuple(torch.cat(part) for part in zip(*record)))
+
+    for name, (m, s) in sides.items():
+        iv = {hook: steering.clamp_features_max_batched(s, feats, CLAMP)}
+        t0 = time.perf_counter()
+        with selections(name, picks["generate"]) as generate_stats:
+            out[name] = m.generate({"input_ids": ids}, max_new_tokens=new, interventions=iv).cpu()
+        with selections(name, picks["prefill"]) as prefill_stats:
+            x = torch.as_tensor(ids, device=m.device)
+            res = llama_forward(m.params, cfg, x, interventions=iv, cache=KVCache.init(cfg, 2, S + new, device=m.device))
+            last_logits[name] = res["logits"][:, -1].float().cpu()
+        if name == "card":
+            torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+    rel = _l2_rel(last_logits["card"], last_logits["cpu"])
+    if not rel <= REDUCED_L2_REL:
+        raise AssertionError(f"reduced steering: the prefill's last logits differ by relative L2 {rel}")
+    m_cpu, s_cpu = sides["cpu"]
+    _, cpu_gap, _ = _cache_free_top2(m_cpu.params, cfg, out["cpu"], new,
+                                     clamp=(hook, s_cpu, feats, _picks(picks["generate"], 2, S)))
+    diff = (out["card"][:, S:] != out["cpu"][:, S:]).any(0)
+    first_diff = int(torch.nonzero(diff)[0]) if bool(diff.any()) else None
+    if first_diff is not None and float(cpu_gap[:, first_diff].min()) >= REDUCED_NEAR_TIE:
+        raise AssertionError(f"reduced steering: the card's and the CPU's ids differ at step {first_diff}, "
+                             f"where the CPU's top-2 gap is {float(cpu_gap[:, first_diff].min())}")
+    del sides, m_card, sae_card, m_cpu, s_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"layers": layers, "tokens": S, "new_tokens": new, "dtype": "float32, eager attention", "hook": hook,
+            "features": feats, "prefill_last_logits_l2_rel": rel, "l2_rel_bound": REDUCED_L2_REL,
+            "first_differing_step": first_diff, "near_tie": REDUCED_NEAR_TIE,
+            "replayed_selections": _merge_replays([generate_stats, prefill_stats]),
+            "card_s": seconds["card"], "cpu_s": seconds["cpu"]}
+
+
+def phase_steering_path(dev, card: str, model, sae) -> dict:
+    """Steering and generation on the attribution phase's subject (LLaMA-3-8B
+    widths, 32 layers, bf16, flash attention, LM head) and SAE (layers.24,
+    131,072 latents, k = 256, fp32, decoder), through `SteeringController`
+    as the steering CLI drives it: a 74-id chat prompt (LLaMA-3's headers
+    around 64 ids drawn with a seed), 64 features in one chunk (16 from the
+    last prompt token's top-k, 48 drawn with a seed), clamp 50, 128 greedy
+    tokens; then a sampled run and a run that clamps at every step; the
+    checks and readings of PERF.md's steering_path."""
+    from multimodal_sae_tpu_torch.features.steering import CLAMP_CHUNK, SteeringController, clamp_features_max_batched
+    from multimodal_sae_tpu_torch.ops import flash_attention as fa
+
+    hook, F_, new, width = "layers.24", 64, 128, sae.num_latents
+    vocab, cfg = model.cfg.vocab_size, model.cfg
+    rng = np.random.default_rng(12)
+    chat = _StubChat(rng.integers(0, 128000, size=64))
+    S_p = len(chat("")["input_ids"])
+    prompt = np.asarray([chat("")["input_ids"]])
+    h = model.capture({"input_ids": prompt}, [hook])[hook]
+    top = sae.encode(h[0, -1:]).top_indices[0, :16].long().tolist()
+    feats = top + sorted(rng.choice(np.setdiff1d(np.arange(width), top), F_ - len(top), replace=False).tolist())
+    chunks = -(-F_ * S_p // CLAMP_CHUNK)
+    x_chunk = h[0].repeat(F_, 1)[:CLAMP_CHUNK]
+    feats_of_tokens = torch.tensor(feats, device=dev).repeat_interleave(S_p)[:CLAMP_CHUNK]
+    del h
+
+    def controller(features, fbs, n_new, gen_cfg=None):
+        return SteeringController(sae, hook, features, model, chat, prompt="(stub template)", k=CLAMP,
+                                  max_new_tokens=n_new, feature_batch_size=fbs, generation_config=gen_cfg)
+
+    controller(feats[:2], 2, 2).run()  # warm-up: cuBLAS handles, the allocator
+    seconds = {}
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ctl = controller(feats, F_, new)
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    result = ctl.run()
+    torch.cuda.synchronize()
+    seconds["run"] = time.perf_counter() - t0
+    launches = kernel_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # The baseline's prefill runs 32 attentions; the chunk's too, and its
+    # clamp two block-max levels and one decode per token chunk; no decode
+    # step launches a kernel.
+    _expect_launches(launches, {"flash_attention": 64, "block_max": 2 * chunks, "gather_rows": chunks},
+                     "SteeringController.run")
+    keys = [f"{hook}_feature{f}" for f in feats]
+    if list(result) != keys:
+        raise AssertionError("the steering result's keys differ from the features")
+    steered = torch.tensor([_answer_ids(result[k]["clamped_resps"], new, vocab) for k in keys])
+    baseline = _answer_ids(result[keys[0]]["original_resps"], new, vocab)
+    runs = [launches]
+
+    # The same two generates with marks: prefill and step times, and the
+    # launches of the prefill and of the decode steps apart.
+    iv = {hook: clamp_features_max_batched(sae, feats, CLAMP)}
+    kw = dict(ctl._sample_kwargs)
+    record_steered, record_every = [], []
+    out_steered, timed_steered = _timed_generate(model, ctl._replicate_batch(F_), iv, new, record=record_steered,
+                                                 **kw)
+    runs.append(timed_steered["launches"]["prefill"])
+    _expect_launches(timed_steered["launches"]["prefill"],
+                     {"flash_attention": 32, "block_max": 2 * chunks, "gather_rows": chunks}, "the steered prefill")
+    _expect_launches(timed_steered["launches"]["decode"], {}, "the steered decode steps")
+    if not torch.equal(out_steered[:, S_p:].cpu(), steered):
+        raise AssertionError("a second steered generate gave other tokens")
+    out_base, timed_base = _timed_generate(model, ctl.batch, None, new, **kw)
+    runs.append(timed_base["launches"]["prefill"])
+    _expect_launches(timed_base["launches"]["prefill"], {"flash_attention": 32}, "the baseline's prefill")
+    _expect_launches(timed_base["launches"]["decode"], {}, "the baseline's decode steps")
+    if out_base[0, S_p:].tolist() != baseline:
+        raise AssertionError("a second baseline generate gave other tokens")
+
+    # Clamping at every step: 8 features, 16 tokens.
+    iv8 = {hook: clamp_features_max_batched(sae, feats[:8], CLAMP)}
+    out_every, timed_every = _timed_generate(model, ctl._replicate_batch(8), iv8, 16, record=record_every,
+                                             intervene_prefill_only=False, **kw)
+    steps = timed_every["step_ms"]["steps"]
+    runs += [timed_every["launches"]["prefill"], timed_every["launches"]["decode"]]
+    _expect_launches(timed_every["launches"]["prefill"], {"flash_attention": 32, "block_max": 2, "gather_rows": 1},
+                     "the every-step prefill")
+    _expect_launches(timed_every["launches"]["decode"], {"block_max": 2 * steps, "gather_rows": steps},
+                     "the every-step decode steps")
+
+    # A sampled run: temperature 0.6 and top_p 0.9 (LLaMA-3-8B-Instruct's
+    # generation_config.json), 32 tokens, the same 64 features.
+    sample_cfg = {"do_sample": True, "temperature": 0.6, "top_p": 0.9, "seed": 0}
+    sampled_ctl = controller(feats, F_, 32, sample_cfg)
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    sampled = sampled_ctl.run()
+    torch.cuda.synchronize()
+    seconds["sampled_run"] = time.perf_counter() - t0
+    runs.append(kernel_counts())
+    _expect_launches(runs[-1], {"flash_attention": 64, "block_max": 2 * chunks, "gather_rows": chunks},
+                     "the sampled run")
+    for k_ in keys:
+        _answer_ids(sampled[k_]["clamped_resps"], 32, vocab)
+
+    # Check 1: the cache against no cache, the clamp taking the checked
+    # generate's selections.
+    picks_steered = _picks(record_steered, F_, S_p)
+    seq_steered = torch.cat([torch.as_tensor(prompt).repeat(F_, 1), steered], dim=1).to(dev)
+    argmax_steered, gap_steered, replay_steered = _cache_free_top2(model.params, cfg, seq_steered, new,
+                                                                   clamp=(hook, sae, feats, picks_steered))
+    cache_free = {
+        "baseline": _check_cache_free(out_base[:, S_p:], *_cache_free_top2(model.params, cfg, out_base, new),
+                                      "the baseline"),
+        "steered_64": _check_cache_free(steered.to(dev), argmax_steered, gap_steered, replay_steered,
+                                        "the steered rows"),
+        "every_step_8": _check_cache_free(out_every[:, S_p:], *_cache_free_top2(
+            model.params, cfg, out_every, 16, clamp=(hook, sae, feats[:8], _picks(record_every, 8, S_p))),
+            "the every-step rows"),
+    }
+    del seq_steered, argmax_steered, record_steered, record_every
+
+    # Check 2: batched equals sequential up to the first near tie, each
+    # feature alone taking its batched row's clamp selections.
+    alone = feats[:2] + feats[16:18]
+    rows_alone = [feats.index(f) for f in alone]
+    t0 = time.perf_counter()
+    with _replaying_topk(tuple(p[rows_alone].reshape(-1, p.shape[-1]) for p in picks_steered)) as stats:
+        sequential = controller(alone, 1, new).run()
+    torch.cuda.synchronize()
+    seconds["sequential_4"] = time.perf_counter() - t0
+    replay_sequential = _merge_replays([stats])
+    first_divergence = {}
+    for f, row in zip(alone, rows_alone):
+        seq = _answer_ids(sequential[f"{hook}_feature{f}"]["clamped_resps"], new, vocab)
+        diff = [i for i in range(new) if seq[i] != int(steered[row, i])]
+        first_divergence[f] = diff[0] if diff else None
+        if diff and not float(gap_steered[row, diff[0]]) <= STEER_NEAR_TIE:
+            raise AssertionError(f"feature {f} alone differs from its batched row at step {diff[0]}, where the "
+                                 f"top-2 gap is {float(gap_steered[row, diff[0]])}")
+    del picks_steered
+
+    # Check 3: one token chunk of the clamp against its plain chain.
+    clamp_chunk = _check_clamp_chunk(sae, x_chunk, feats_of_tokens)
+    del x_chunk, feats_of_tokens
+
+    # Readings: 16 decode steps under the profiler, the decode step's bound,
+    # K3 at the prefill shape.
+    profile = _profile_decode(model, ctl._replicate_batch(F_), iv, 16, **kw)
+    bound = _decode_bound(model.params, cfg, F_, S_p, new)
+    k3_prefill = _attention_case(fa, torch.Generator(device=dev).manual_seed(15), dev, F_, 32, 8, S_p, 128, None,
+                                 phase="flash_attention_prefill")
+    reduced = _reduced_steering(model, sae, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    generated = (1 + F_) * new
+    emit({
+        "phase": "steering_path", "subject": "LLaMA-3-8B widths, 32 layers, bf16, flash attention, LM head",
+        "sae": "layers.24, 4096 -> 131072 latents, k=256, fp32, decoder", "prompt_tokens": S_p,
+        "features": F_, "feature_batch": F_, "new_tokens": new, "clamp": CLAMP, "token_chunk": CLAMP_CHUNK,
+        "clamp_chunks": chunks, "seconds": seconds, "generated_tokens_per_s": generated / seconds["run"],
+        "features_per_s": F_ / seconds["run"], "peak_gb": peak_gb, "launches": launches,
+        "steered_generate": timed_steered, "baseline_generate": timed_base, "every_step_generate": timed_every,
+        "decode_step_bound": bound, "decode_profile": profile, "cache_vs_no_cache": cache_free,
+        "batched_vs_sequential": {"features": alone, "first_divergence": first_divergence,
+                                  "near_tie": STEER_NEAR_TIE, "replayed_selections": replay_sequential},
+        "sampled": {"temperature": 0.6, "top_p": 0.9, "new_tokens": 32, "seconds": seconds["sampled_run"]},
+        "clamp_chunk_check": clamp_chunk, "k3_prefill": k3_prefill, "reduced_card_vs_cpu": reduced, "card": card,
+    })
+    launches_total = {name: sum(run[name] for run in runs) for name in runs[0]}
+    return {"launches": launches_total, "k3_prefill": k3_prefill, "clamp_chunk": clamp_chunk,
+            "decode_step": {"ms": timed_steered["step_ms"], **bound}}
+
+
+def phase_image_steering_path(dev, card: str) -> dict:
+    """Steering on a random LLaVA-NeXT at llama3-llava-next-8b's widths (the
+    CLIP-L/336 tower, the projector and all 32 text layers with the LM head;
+    bf16, flash attention) with a 131,072-latent k = 256 fp32 SAE at
+    model.layers.24: one 480 x 640 image (seeded pixels, prepared here: the
+    card's machine has no PIL) and a short chat prompt, 2,360 tokens a row,
+    8 features in one chunk (4 from the last prompt token's top-k, 4 drawn
+    with a seed), 32 greedy tokens, through `SteeringController`."""
+    from multimodal_sae_tpu_torch.config import SaeConfig
+    from multimodal_sae_tpu_torch.device import setup
+    from multimodal_sae_tpu_torch.features import steering
+    from multimodal_sae_tpu_torch.features.steering import CLAMP_CHUNK, SteeringController, clamp_features_max_batched
+    from multimodal_sae_tpu_torch.models import llava_next
+    from multimodal_sae_tpu_torch.models.llama import LlamaConfig
+    from multimodal_sae_tpu_torch.models.llava_next import LlavaNextConfig, LlavaNextModel, get_number_of_features
+    from multimodal_sae_tpu_torch.ops import flash_attention as fa
+    from multimodal_sae_tpu_torch.sae import Sae
+
+    setup(dev)
+    hook, F_, new = "model.layers.24", 8, 32
+    t0 = time.perf_counter()
+    cfg = LlavaNextConfig(text_config=LlamaConfig(vocab_size=128257, flash_attention=True))
+    model = LlavaNextModel.random(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    sae = Sae(4096, SaeConfig(num_latents=131072, k=256), decoder=True, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(13)
+    crops = _image_batch(cfg, [UNIFORM_HW], rng)["pixel_values"][0]
+    n_image = get_number_of_features(*UNIFORM_HW, cfg)
+
+    def prepare_inputs(images=None, prompt_ids=None, input_ids=None):
+        """`prepare_inputs` for the one prepared image: placeholders
+        expanded, the crops' one pixel array."""
+        row = [t for t0_ in prompt_ids[0] for t in ([t0_] * n_image if t0_ == cfg.image_token_index else [t0_])]
+        return {"input_ids": np.asarray([row]), "attention_mask": np.ones((1, len(row)), np.int64),
+                "pixel_values": [crops], "image_sizes": [UNIFORM_HW]}
+
+    model.prepare_inputs = prepare_inputs
+    chat = _StubChat(rng.integers(0, 128000, size=8), image_token=cfg.image_token_index)
+    tower_calls = []
+    real_tower, real_load = llava_next.project_image_features, steering.load_image
+
+    def counted_tower(params, cfg_, pixel_values):
+        tower_calls.append(pixel_values.shape[0])
+        return real_tower(params, cfg_, pixel_values)
+
+    llava_next.project_image_features, steering.load_image = counted_tower, lambda path: path
+    try:
+        def controller(features, n_new):
+            return SteeringController(sae, hook, features, model, chat, prompt="(stub template)",
+                                      image_path="480 x 640, seeded pixels", k=CLAMP, max_new_tokens=n_new,
+                                      feature_batch_size=F_)
+
+        ctl = controller([0], new)
+        S_p = ctl.batch["input_ids"].shape[1]
+        h = model.capture(ctl.batch, [hook])[hook]
+        top = sae.encode(h[0, -1:]).top_indices[0, :4].long().tolist()
+        feats = top + sorted(rng.choice(np.setdiff1d(np.arange(sae.num_latents), top), F_ - len(top),
+                                        replace=False).tolist())
+        del h
+        controller(feats[:2], 2).run()  # warm-up
+        chunks = -(-F_ * S_p // CLAMP_CHUNK)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ctl = controller(feats, new)
+        tower_calls.clear()
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        result = ctl.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = kernel_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        n_crops, tower_run = crops.shape[0], list(tower_calls)
+        if tower_run != [n_crops, n_crops]:
+            raise AssertionError(f"the tower ran on {tower_run} crops; once per generate on {n_crops} expected")
+        _expect_launches(launches, {"flash_attention": 64, "block_max": 2 * chunks, "gather_rows": chunks},
+                         "image SteeringController.run")
+        keys = [f"{hook}_feature{f}" for f in feats]
+        vocab = cfg.text_config.vocab_size
+        steered = torch.tensor([_answer_ids(result[k]["clamped_resps"], new, vocab) for k in keys])
+        iv = {hook: clamp_features_max_batched(sae, feats, CLAMP)}
+        batch8 = ctl._replicate_batch(F_)
+        record = []
+        out8, timed = _timed_generate(model, batch8, iv, new, record=record, **ctl._sample_kwargs)
+        runs = [launches, timed["launches"]["prefill"]]
+        _expect_launches(timed["launches"]["prefill"], {"flash_attention": 32, "block_max": 2 * chunks,
+                                                       "gather_rows": chunks}, "the image prefill")
+        _expect_launches(timed["launches"]["decode"], {}, "the image decode steps")
+        if not torch.equal(out8[:, S_p:].cpu(), steered):
+            raise AssertionError("a second image generate gave other tokens")
+        embeds = model._embed_multimodal(batch8)
+        lm = model.params["language_model"]
+        cache_free = _check_cache_free(out8[:, S_p:], *_cache_free_top2(
+            lm, cfg.text_config, out8, new, embeds=embeds, rows_at_once=2,
+            clamp=("layers.24", sae, feats, _picks(record, F_, S_p))), "the image rows")
+        del embeds, record
+        bound = _decode_bound(lm, cfg.text_config, F_, S_p, new)
+    finally:
+        llava_next.project_image_features, steering.load_image = real_tower, real_load
+    k3_prefill = _attention_case(fa, torch.Generator(device=dev).manual_seed(16), dev, F_, 32, 8, S_p, 128, None,
+                                 phase="flash_attention_prefill")
+    del model, sae
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({
+        "phase": "image_steering_path",
+        "subject": "llama3-llava-next-8b widths (CLIP-L/336, projector, 32 text layers, LM head), bf16, flash attention",
+        "sae": "model.layers.24, 4096 -> 131072 latents, k=256, fp32, decoder", "image": list(UNIFORM_HW),
+        "prompt_tokens": S_p, "features": F_, "new_tokens": new, "clamp_chunks": chunks, "init_s": init_s,
+        "run_s": run_s, "generated_tokens_per_s": (1 + F_) * new / run_s, "features_per_s": F_ / run_s,
+        "peak_gb": peak_gb, "launches": launches, "tower_calls_crops": tower_run, "steered_generate": timed,
+        "decode_step_bound": bound, "cache_vs_no_cache": cache_free, "k3_prefill": k3_prefill, "card": card,
+    })
+    total = {name: sum(run[name] for run in runs) for name in runs[0]}
+    return {"launches": total, "k3_prefill": k3_prefill, "decode_step": {"ms": timed["step_ms"], **bound}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card", file=sys.stderr)
@@ -2629,6 +3377,7 @@ def main() -> int:
     model, sae = attribution.pop("model"), attribution.pop("sae")
     general = phase_general_attribution_path(dev, card, model, sae)
     stats = phase_stats_path(dev, card, model, sae, loaded["records"], loaded["selected"])
+    steering = phase_steering_path(dev, card, model, sae)
     del model, sae
     loader_launches = loaded["launches"]
     del loaded
@@ -2640,9 +3389,11 @@ def main() -> int:
     image = phase_image_cache_path(dev, card)
     gc.collect()
     torch.cuda.empty_cache()
+    image_steering = phase_image_steering_path(dev, card)
     clip = phase_clip_path(dev, card)
     runs = (cache["launches"], loader_launches, explained["launches"], attribution["launches"],
-            general["launches"], stats["launches"], train["launches"], image["launches"], clip["launches"])
+            general["launches"], stats["launches"], steering["launches"], train["launches"], image["launches"],
+            image_steering["launches"], clip["launches"])
     total = {name: sum(run[name] for run in runs) for name in runs[0]}
     k2, splice, dvals = attribution["k2"], attribution["splice"], train["dvals"]
     bwd_launches = {part: total[f"flash_attention_bwd_{part}"] for part in ("delta", "dkdv", "dq")}
@@ -2653,14 +3404,15 @@ def main() -> int:
          "launches": total["block_max"], "max_abs_err": k1["max_abs_err"],
          "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
          "bound_by": "bytes", "library_ms": k1["library_ms"], "image_step": k1["image_step"],
-         "prompt_step": k1["prompt_step"]},
+         "prompt_step": k1["prompt_step"], "clamp_chunk": steering["clamp_chunk"]["block_max"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "multimodal_sae_tpu_torch/csrc/flash_attention.cu",
          "replaces": "multimodal_sae_tpu/models/llama.py:341",
          "launches": total["flash_attention"], "max_abs_err": k3["max_abs_err"],
          "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": k3["library_ms"], "image_shapes": k3["image_shapes"],
-         "right_pad_edges_max_abs_err": k3["right_pad_edges_max_abs_err"]},
+         "right_pad_edges_max_abs_err": k3["right_pad_edges_max_abs_err"],
+         "prefill_shapes": [steering["k3_prefill"], image_steering["k3_prefill"]]},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "multimodal_sae_tpu_torch/csrc/flash_attention_bwd.cu",
          "replaces": "multimodal_sae_tpu/models/llama.py:341 (jax flash_attention.py:1121 dkv, :1456 dq)",
@@ -2675,7 +3427,8 @@ def main() -> int:
          "replaces": "multimodal_sae_tpu/ops/pallas_gather.py:50",
          "launches": total["gather_rows"], "max_abs_err": k2["max_abs_err"],
          "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
-         "bound_by": k2["bound_by"], "library_ms": k2["library_ms"]},
+         "bound_by": k2["bound_by"], "library_ms": k2["library_ms"],
+         "clamp_chunk": steering["clamp_chunk"]["gather_decode"]},
         {"name": "splice_decode", "route": "cuda",
          "source": "multimodal_sae_tpu_torch/csrc/gather_rows.cu",
          "replaces": "multimodal_sae_tpu/ops/pallas_gather.py:50",

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ...device import DeviceLike, resolve_device, set_precision
+from ...models.llava_next import repack_left_padded
 from ...ops.gather_rows import drop_positions, splice_decode, splice_lists
 from ...sae import Sae, decode, pre_acts, select_topk
 from .utils import get_logit_diff, spliced_forward_with_delta
@@ -224,27 +225,6 @@ def general_attribution_maps(
         if pbar:
             pbar.update(1)
     return dict(out)
-
-
-def repack_left_padded(batch: dict) -> dict:
-    """Move every row's valid tokens to the end (left padding), so the last
-    position is each row's last real token (multimodal_sae_tpu/models/
-    llava_next.py::_repack_left_padded)."""
-    amask = batch.get("attention_mask")
-    if amask is None:
-        return batch
-    am = np.asarray(amask)
-    ids = np.asarray(batch["input_ids"])
-    if not (am == 0).any():
-        return batch
-    new_ids = np.zeros_like(ids)
-    new_am = np.zeros_like(am)
-    for i in range(am.shape[0]):
-        valid = ids[i][am[i].astype(bool)]
-        if len(valid):
-            new_ids[i, -len(valid):] = valid
-            new_am[i, -len(valid):] = 1
-    return {**batch, "input_ids": new_ids, "attention_mask": new_am}
 
 
 class Attribution:

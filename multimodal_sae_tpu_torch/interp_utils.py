@@ -57,18 +57,20 @@ def load_saes(
     filters: Optional[Dict[str, np.ndarray]] = None,
     dtype: Optional[torch.dtype] = None,
     device: DeviceLike = None,
+    decoder: bool = False,
 ) -> Dict[str, Sae]:
     """One SAE per hookpoint from the local directory `sae_path`: the
     filter's hookpoints when a filter is given, else every subdirectory.
-    The cache path never decodes, so decoders stay on disk."""
+    The cache path never decodes, so decoders stay on disk unless
+    `decoder` (steering decodes)."""
     if not os.path.isdir(sae_path):
         raise FileNotFoundError(f"{sae_path} is not a local SAE directory")
     if filters is not None:
         return {
-            name: Sae.load_from_disk(os.path.join(sae_path, name), dtype, decoder=False, device=device)
+            name: Sae.load_from_disk(os.path.join(sae_path, name), dtype, decoder=decoder, device=device)
             for name in filters
         }
-    return Sae.load_many(sae_path, dtype=dtype, decoder=False, device=device)
+    return Sae.load_many(sae_path, dtype=dtype, decoder=decoder, device=device)
 
 
 def load_single_sae(

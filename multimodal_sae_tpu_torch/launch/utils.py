@@ -1,6 +1,7 @@
 """Launch-script plumbing (multimodal_sae_tpu/launch/utils.py): subject
-loading from a local HF checkpoint, datasets, hookpoint checks, and the
-cached-feature loader of the explain, score and image tools.
+loading from a local HF checkpoint with its generation config, the chat
+prompt batch, datasets, hookpoint checks, and the cached-feature loader of
+the explain, score and image tools.
 `transformers` and `datasets` are imported only inside the helpers that need
 a tokenizer, a processor or an HF dataset."""
 
@@ -46,7 +47,9 @@ def load_subject_model(
     when the checkpoint is one (config.json's model_type, else the name),
     plain LLaMA otherwise.  Returns (model, processor or None, tokenizer).
     `truncate_layers` > 0 keeps only the first N language-model layers, whose
-    weights alone reach the device; hookpoints below N are unchanged."""
+    weights alone reach the device; hookpoints below N are unchanged.  The
+    model carries the checkpoint's `generation_config` (a dict, see
+    `_load_generation_config`), which its `generate` reads stop ids from."""
     from transformers import AutoTokenizer
 
     if _is_llava_checkpoint(model_name_or_path):
@@ -72,7 +75,51 @@ def load_subject_model(
         cfg = dataclasses.replace(cfg, flash_attention=flash_attention or cfg.flash_attention)
         model, processor = LlamaModel(params, cfg), None
     tokenizer = AutoTokenizer.from_pretrained(model_name_or_path, token=hf_token)
+    model.generation_config = _load_generation_config(model_name_or_path)
     return model, processor, tokenizer
+
+
+def _load_generation_config(model_name_or_path: str) -> dict:
+    """Sampling knobs from the checkpoint's generation_config.json (the
+    reference inherits these through HF `generate`); a missing file gives
+    {} (greedy)."""
+    path = os.path.join(model_name_or_path, "generation_config.json")
+    if not os.path.isfile(path):
+        return {}
+    with open(path) as f:
+        raw = json.load(f)
+    return {k: raw[k] for k in ("do_sample", "temperature", "top_p", "eos_token_id") if raw.get(k) is not None}
+
+
+def prepare_prompt_batch(
+    model,
+    processor,
+    tokenizer,
+    text: Optional[str],
+    image=None,
+    use_chat_template: bool = True,
+    raw_prompt: Optional[str] = None,
+):
+    """(tok, prompt_ids, batch) of one prompt: the text (and an optional
+    image) chat-templated through the processor, or the tokenizer for a
+    text-only subject, tokenized, and prepared with the image when there is
+    one.  With `use_chat_template=False`, `raw_prompt` is tokenized as it
+    is."""
+    if use_chat_template:
+        conversation = [{"role": "user", "content": [{"type": "text", "text": text}]}]
+        if image is not None:
+            conversation[0]["content"].append({"type": "image"})
+        templater = processor if processor is not None else tokenizer
+        prompt = templater.apply_chat_template(conversation, add_generation_prompt=True, tokenize=False)
+    else:
+        prompt = raw_prompt
+    tok = getattr(processor, "tokenizer", tokenizer)
+    prompt_ids = tok(prompt)["input_ids"]
+    if image is not None:
+        batch = model.prepare_inputs(images=[image], prompt_ids=[prompt_ids])
+    else:
+        batch = {"input_ids": [prompt_ids]}
+    return tok, prompt_ids, batch
 
 
 def refuse_unported(cfg) -> None:

@@ -14,9 +14,18 @@ differentiates (attribution takes the gradient at a splice); `capture` runs
 without it.
 
 With `LlamaConfig.flash_attention` the attention runs through kernel K3
-(ops/flash_attention.py, forward and backward) with k and v left at kvH
-heads; eager attention repeats them, as HF does.  The KV cache, generation
-and remat come with the steering slice.
+(ops/flash_attention.py, forward and backward); both it and the eager
+attention read k and v at kvH heads without repeating them.
+
+Generation (`greedy_generate`) keeps a `KVCache` written in place.  Its
+prefill runs K3 over the prompt's own keys with the left-pad key mask where
+the JAX package runs eager attention over the whole cache
+(multimodal_sae_tpu/models/llama.py:392 takes the flash kernel only without
+a cache): the same function, since the slots past the prompt are masked,
+and one whose fp32 score tensor, (B, H, S, S + new) a layer, would not fit
+at an image prompt.  A decode step attends over the live slots in plain
+PyTorch, as the JAX package does outside any Pallas kernel.  Remat is not
+ported.
 """
 
 from __future__ import annotations
@@ -24,13 +33,13 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, resolve_device, set_precision
 from ..ops import flash_attention as fa
 
 
@@ -140,17 +149,44 @@ def apply_rope(q, k, cos, sin):
     return q, k
 
 
-def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
-    """(B, kvH, S, hd) -> (B, H, S, hd) by repeating each kv head."""
-    return x if n_rep == 1 else x.repeat_interleave(n_rep, dim=1)
+@dataclass
+class KVCache:
+    """The generation loop's cache (multimodal_sae_tpu/models/llama.py
+    `KVCache`): k and v of every layer, (layers, B, kvH, max_len, hd) in
+    the params' dtype, and the number of slots written.  `llama_forward`
+    writes a block's k and v into these buffers in place and returns a
+    KVCache over the same buffers with the length advanced."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    length: int = 0
+
+    @staticmethod
+    def init(
+        cfg: "LlamaConfig",
+        batch: int,
+        max_len: int,
+        dtype: torch.dtype = torch.float32,
+        device: DeviceLike = None,
+    ) -> "KVCache":
+        shape = (cfg.num_hidden_layers, batch, cfg.num_key_value_heads, max_len, cfg.head_dim_)
+        dev = resolve_device(device)
+        return KVCache(torch.zeros(shape, dtype=dtype, device=dev), torch.zeros(shape, dtype=dtype, device=dev))
 
 
 def causal_mask(
-    S: int, attention_mask: Optional[torch.Tensor], device: torch.device
+    S: int,
+    attention_mask: Optional[torch.Tensor],
+    device: torch.device,
+    keys: Optional[int] = None,
+    offset: int = 0,
 ) -> torch.Tensor:
-    """Additive fp32 mask (B or 1, 1, S, S): causal plus optional padding."""
+    """Additive fp32 mask (B or 1, 1, S, keys): causal plus optional padding
+    of the keys.  `offset` is the number of cached tokens before the query
+    block; `keys` defaults to S."""
+    keys = S if keys is None else keys
     neg = torch.finfo(torch.float32).min
-    causal = torch.ones(S, S, dtype=torch.bool, device=device).tril()
+    causal = torch.arange(keys, device=device)[None, :] <= torch.arange(S, device=device)[:, None] + offset
     mask = torch.where(causal, 0.0, neg)[None, None]
     if attention_mask is not None:
         pad = torch.where(attention_mask[:, None, None, :].bool(), 0.0, neg)
@@ -159,12 +195,19 @@ def causal_mask(
 
 
 def attention(q, k, v, mask: Optional[torch.Tensor], scale: float) -> torch.Tensor:
-    """Eager (B, H, S, hd) attention: fp32 scores and softmax (HF eager)."""
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    """Eager attention of q (B, H, S, hd) over k, v (B, kvH, L, hd): fp32
+    scores and softmax, the probabilities cast to q's dtype for the PV
+    product (HF eager).  Grouped-query heads are a reshape of q to
+    (B, kvH, H // kvH * S, hd) against k and v as they are: a decode step
+    over a long cache never copies them to H heads."""
+    B, H, S, hd = q.shape
+    kvH, L = k.shape[1], k.shape[2]
+    n_rep = H // kvH
+    scores = torch.matmul(q.reshape(B, kvH, n_rep * S, hd).float(), k.float().transpose(-1, -2)) * scale
     if mask is not None:
-        scores = scores + mask
+        scores = (scores.view(B, kvH, n_rep, S, L) + mask[:, :, None]).view(B, kvH, n_rep * S, L)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    return torch.matmul(probs, v)
+    return torch.matmul(probs, v).view(B, H, S, hd)
 
 
 def decoder_layer(
@@ -175,7 +218,14 @@ def decoder_layer(
     sin: torch.Tensor,
     mask: Optional[torch.Tensor],
     pad_mask: Optional[torch.Tensor],
+    kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    cache_offset: int = 0,
 ) -> torch.Tensor:
+    """One decoder layer.  With `kv`, this layer's cache buffers
+    (B, kvH, max_len, hd), the block's k and v are written at
+    `cache_offset`; a block at offset 0 with more than one token (the
+    prefill) attends over its own keys, any other over the cache's slots up
+    to its end."""
     B, S, _ = h.shape
     H, kvH, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
     x = rms_norm(h, p["input_layernorm"], cfg.rms_norm_eps)
@@ -183,12 +233,18 @@ def decoder_layer(
     k = F.linear(x, p["k_proj"]).view(B, S, kvH, hd).transpose(1, 2)
     v = F.linear(x, p["v_proj"]).view(B, S, kvH, hd).transpose(1, 2)
     q, k = apply_rope(q, k, cos, sin)
-    if cfg.flash_attention and S > 1:
+    if kv is not None:
+        end = cache_offset + S
+        kv[0][:, :, cache_offset:end] = k
+        kv[1][:, :, cache_offset:end] = v
+        if cache_offset:
+            k, v = kv[0][:, :, :end], kv[1][:, :, :end]
+    if cfg.flash_attention and S > 1 and not cache_offset:
         attn = fa.flash_attention(
             q.contiguous(), k.contiguous(), v.contiguous(), pad_mask, scale=hd**-0.5
         )
     else:
-        attn = attention(q, _repeat_kv(k, H // kvH), _repeat_kv(v, H // kvH), mask, hd**-0.5)
+        attn = attention(q, k, v, mask, hd**-0.5)
     h = h + F.linear(attn.transpose(1, 2).reshape(B, S, H * hd), p["o_proj"])
     x = rms_norm(h, p["post_attention_layernorm"], cfg.rms_norm_eps)
     mlp = F.silu(F.linear(x, p["gate_proj"])) * F.linear(x, p["up_proj"])
@@ -216,33 +272,59 @@ def llama_forward(
     *,
     inputs_embeds: Optional[torch.Tensor] = None,
     attention_mask: Optional[torch.Tensor] = None,
+    position_ids: Optional[torch.Tensor] = None,
     capture: Sequence[str] = (),
     interventions: Optional[Dict[str, InterventionFn]] = None,
+    cache: Optional[KVCache] = None,
     return_logits: bool = True,
     return_hidden: bool = False,
     start_layer: int = 0,
 ) -> dict:
     """Full forward: {"captured": {hookpoint: (B, S, D) post-layer residual},
     "hidden": final post-norm states (with `return_hidden`), "logits"
-    (with `return_logits`)}.
+    (with `return_logits`), "cache" (with `cache`)}.
 
     `interventions` {hookpoint: fn} replace layer i's output h by fn(h),
     keyed by layer index (either hookpoint spelling), before it is captured.
     `start_layer > 0` resumes mid-stack: `inputs_embeds` is then the hidden
     state entering layer `start_layer`, and only layers [start_layer,
     num_hidden_layers) run; this is the suffix of attribution patching.
-    Without logits or hidden, the loop stops after the deepest hookpoint."""
-    if start_layer and inputs_embeds is None:
-        raise ValueError("start_layer needs inputs_embeds (the state entering that layer)")
+    Without logits or hidden, the loop stops after the deepest hookpoint.
+
+    With `cache` the block's k and v are written at `cache.length` and the
+    returned "cache" has its length advanced.  `attention_mask` then covers
+    either the whole cache (max_len, as `greedy_generate` passes it) or just
+    the block, which is placed at the block's offset; `position_ids`
+    default to the block's cache positions."""
+    if start_layer and (inputs_embeds is None or cache is not None):
+        raise ValueError("start_layer needs inputs_embeds (the state entering that layer) and no cache")
     h = params["embed_tokens"][input_ids] if inputs_embeds is None else inputs_embeds
     B, S, _ = h.shape
-    positions = torch.arange(S, device=h.device)[None, :]
-    cos, sin = rope_cos_sin(positions, cfg.head_dim_, cfg.rope_theta, cfg.rope_scaling_dict)
-    if cfg.flash_attention and S > 1:
+    offset = cache.length if cache is not None else 0
+    if position_ids is None:
+        position_ids = torch.arange(S, device=h.device)[None, :] + offset
+    cos, sin = rope_cos_sin(position_ids, cfg.head_dim_, cfg.rope_theta, cfg.rope_scaling_dict)
+    live = attention_mask
+    if cache is not None:
+        S_k, filled = cache.k.shape[3], offset + S
+        if filled > S_k:
+            raise ValueError(f"the cache holds {S_k} slots; {offset} written and {S} more do not fit")
+        if attention_mask is not None:
+            if attention_mask.shape[1] == S_k:
+                live = attention_mask[:, :filled]
+            elif attention_mask.shape[1] == S:
+                live = torch.ones(B, filled, dtype=attention_mask.dtype, device=attention_mask.device)
+                live[:, offset:] = attention_mask
+            else:
+                raise ValueError(
+                    f"attention_mask length {attention_mask.shape[1]} matches "
+                    f"neither the input block ({S}) nor the cache ({S_k})"
+                )
+    if cfg.flash_attention and S > 1 and not offset:
         # Causality and pad-key exclusion happen inside the kernel.
-        mask, pad_mask = None, attention_mask
+        mask, pad_mask = None, live
     else:
-        mask, pad_mask = causal_mask(S, attention_mask, h.device), None
+        mask, pad_mask = causal_mask(S, live, h.device, keys=offset + S, offset=offset), None
     iv_by_idx = {hookpoint_layer_idx(k): fn for k, fn in (interventions or {}).items()}
     cap_by_idx = {hookpoint_layer_idx(c): c for c in capture}
     end = cfg.num_hidden_layers
@@ -252,12 +334,15 @@ def llama_forward(
         raise ValueError(f"layer {end - 1} is past the subject's {len(params['layers'])} layers")
     captured = {}
     for i in range(start_layer, end):
-        h = decoder_layer(params["layers"][i], cfg, h, cos, sin, mask, pad_mask)
+        kv = (cache.k[i], cache.v[i]) if cache is not None else None
+        h = decoder_layer(params["layers"][i], cfg, h, cos, sin, mask, pad_mask, kv=kv, cache_offset=offset)
         if i in iv_by_idx:
             h = iv_by_idx[i](h)
         if i in cap_by_idx:
             captured[cap_by_idx[i]] = h
     out = {"captured": captured}
+    if cache is not None:
+        out["cache"] = KVCache(cache.k, cache.v, offset + S)
     if return_logits or return_hidden:
         h_final = rms_norm(h, params["norm"], cfg.rms_norm_eps)
         if return_hidden:
@@ -473,3 +558,186 @@ class LlamaModel:
             self.params, self.cfg, hidden, hookpoint_layer_idx(hookpoint),
             attention_mask=batch_mask(batch, self.device), last_logit_only=last_logit_only,
         )
+
+    # ---- generation ------------------------------------------------------
+    def generate(
+        self,
+        input_ids,
+        max_new_tokens: int = 512,
+        interventions: Optional[Dict[str, InterventionFn]] = None,
+        intervene_prefill_only: bool = True,
+        eos_token_id: Union[int, Sequence[int], None] = None,
+        do_sample: bool = False,
+        temperature: float = 1.0,
+        top_p: Optional[float] = None,
+        seed: int = 0,
+        mark: Optional[Callable[[str], None]] = None,
+    ) -> torch.Tensor:
+        """Greedy (default) or sampled generation through `greedy_generate`
+        from token-id rows or a {"input_ids", "attention_mask"} batch
+        (left-padded).  `eos_token_id` defaults from the checkpoint's
+        `generation_config` (attached by launch.utils.load_subject_model).
+        `intervene_prefill_only` applies the interventions at the prefill
+        only, as the reference's steering hook skips length-1 calls.
+        Returns the prompt ids followed by the new ones, (B, S + new)."""
+        if eos_token_id is None:
+            eos_token_id = (getattr(self, "generation_config", None) or {}).get("eos_token_id")
+        attention_mask = None
+        if isinstance(input_ids, dict):
+            attention_mask = input_ids.get("attention_mask")
+            input_ids = input_ids["input_ids"]
+        return greedy_generate(
+            self.params, self.cfg, np.asarray(input_ids), max_new_tokens=max_new_tokens,
+            interventions=interventions, intervene_prefill_only=intervene_prefill_only,
+            eos_token_id=eos_token_id, attention_mask=attention_mask, do_sample=do_sample,
+            temperature=temperature, top_p=top_p, seed=seed, mark=mark,
+        )
+
+
+DONE_CHECK_EVERY = 8
+"""The decode loop reads `done.all()` (a host sync) every this many steps;
+steps after every row is done write the fill id, as the early exit's tail
+fill does, so the output is the same."""
+
+
+@torch.no_grad()
+def greedy_generate(
+    params: dict,
+    cfg: LlamaConfig,
+    input_ids,
+    max_new_tokens: int,
+    interventions: Optional[Dict[str, InterventionFn]] = None,
+    intervene_prefill_only: bool = True,
+    eos_token_id: Union[int, Sequence[int], None] = None,
+    inputs_embeds: Optional[torch.Tensor] = None,
+    attention_mask=None,
+    do_sample: bool = False,
+    temperature: float = 1.0,
+    top_p: Optional[float] = None,
+    seed: int = 0,
+    mark: Optional[Callable[[str], None]] = None,
+) -> torch.Tensor:
+    """Greedy (default) or sampled decode with a KV cache
+    (multimodal_sae_tpu/models/llama.py `greedy_generate`): one prefill,
+    then one forward of a token per step in a Python loop on the params'
+    device.
+
+    `attention_mask` (B, S) supports left-padded batches only: pad keys stay
+    masked for the whole generation, prefill positions are cumsum(mask) - 1
+    and a step's are the row's real length + step - 1, and the next token
+    is read at the last column.  Right padding raises; an all-ones mask is
+    dropped.  Only the last position is projected to the vocabulary in the
+    prefill.  `eos_token_id` (an int or a list of stop ids): a row that has
+    stopped is filled with the first stop id, and so is the tail when every
+    row stops early.  `do_sample` draws from the fp32 logits divided by
+    `temperature` and filtered by `top_p_filter` (HF's warpers), with a
+    torch.Generator on the device seeded by `seed`.  `mark(stage)`, when
+    given, is called after the "prefill" and after each "step"."""
+    if max_new_tokens < 1:
+        raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
+    set_precision()
+    device = params["embed_tokens"].device
+    ids = torch.as_tensor(np.asarray(input_ids), dtype=torch.long).to(device)
+    B, S = ids.shape
+    am = None
+    if attention_mask is not None:
+        am = np.asarray(attention_mask).astype(np.int64)
+        if am.shape != (B, S):
+            raise ValueError(f"attention_mask shape {am.shape} != {(B, S)}")
+        if am.all():
+            am = None
+        elif not (np.diff(am, axis=1) >= 0).all():
+            raise ValueError(
+                "batched generation requires LEFT-padded inputs (pad tokens "
+                "first); right padding would take the next-token logit from "
+                "a pad position"
+            )
+    full_mask = prefill_pos = lengths = None
+    if am is not None:
+        lengths = torch.as_tensor(am.sum(axis=1), device=device)
+        mask_t = torch.as_tensor(am, device=device)
+        full_mask = torch.cat([mask_t, torch.ones(B, max_new_tokens, dtype=mask_t.dtype, device=device)], dim=1)
+        prefill_pos = (torch.cumsum(mask_t, dim=1) - 1).clamp_min(0)
+    if eos_token_id is not None:
+        eos = [int(e) for e in eos_token_id] if isinstance(eos_token_id, (list, tuple)) else [int(eos_token_id)]
+        eos_token_id = torch.tensor(eos, device=device) if eos else None
+    generator = None
+    if do_sample:
+        if float(temperature) <= 0:
+            raise ValueError(
+                "do_sample=True requires temperature > 0; use do_sample=False for greedy decoding"
+            )
+        generator = torch.Generator(device=device).manual_seed(int(seed))
+    next_token = _make_next_token_fn(do_sample, temperature, top_p, generator)
+
+    cache = KVCache.init(cfg, B, S + max_new_tokens, dtype=params["embed_tokens"].dtype, device=device)
+    out = llama_forward(
+        params, cfg, None if inputs_embeds is not None else ids, inputs_embeds=inputs_embeds,
+        attention_mask=full_mask, position_ids=prefill_pos, cache=cache, interventions=interventions,
+        return_logits=False, return_hidden=True,
+    )
+    cache = out["cache"]
+    tokens = torch.empty(B, max_new_tokens, dtype=torch.long, device=device)
+    tokens[:, 0] = next_token(lm_head_logits(params, out["hidden"][:, -1]))
+    del out
+    if mark is not None:
+        mark("prefill")
+    done = None
+    if eos_token_id is not None:
+        done = torch.isin(tokens[:, 0], eos_token_id)
+    decode_iv = None if intervene_prefill_only else interventions
+    i = 1
+    while i < max_new_tokens:
+        if done is not None and (i - 1) % DONE_CHECK_EVERY == 0 and bool(done.all()):
+            break
+        pos = (lengths + i - 1)[:, None] if full_mask is not None else None
+        out = llama_forward(
+            params, cfg, tokens[:, i - 1:i], attention_mask=full_mask, position_ids=pos, cache=cache,
+            interventions=decode_iv,
+        )
+        cache = out["cache"]
+        nxt = next_token(out["logits"][:, -1])
+        if done is not None:
+            nxt = torch.where(done, eos_token_id[0], nxt)
+            done |= torch.isin(nxt, eos_token_id)
+        tokens[:, i] = nxt
+        if mark is not None:
+            mark("step")
+        i += 1
+    if done is not None:
+        tokens[:, i:] = eos_token_id[0]
+    return torch.cat([ids, tokens], dim=1)
+
+
+def top_p_filter(logits: torch.Tensor, top_p: float) -> torch.Tensor:
+    """Nucleus filtering with HF `TopPLogitsWarper` semantics
+    (multimodal_sae_tpu/models/llama.py `top_p_filter`): sort ascending
+    (stable, so ties keep index order), remove the tokens whose bottom-up
+    cumulative mass is <= 1 - top_p (always keeping the top one), and
+    scatter the mask back through the permutation.  A tie class at the
+    boundary keeps its higher-index members, as HF does.  `1 - top_p` is
+    taken in fp32, as the JAX side computes it."""
+    sorted_logits, order = torch.sort(logits, dim=-1, stable=True)
+    cum = torch.softmax(sorted_logits, dim=-1).cumsum(dim=-1)
+    remove_sorted = cum <= 1.0 - torch.tensor(top_p, dtype=torch.float32, device=logits.device)
+    remove_sorted[..., -1] = False
+    remove = remove_sorted.scatter(-1, order, remove_sorted)
+    return logits.masked_fill(remove, float("-inf"))
+
+
+def _make_next_token_fn(
+    do_sample: bool, temperature: float, top_p: Optional[float], generator: Optional[torch.Generator]
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """(logits (B, V)) -> next token ids (B,): the argmax, or a draw from
+    the fp32 logits / temperature after `top_p_filter` (HF warps in fp32
+    whatever the model's dtype)."""
+
+    def next_token(logits: torch.Tensor) -> torch.Tensor:
+        if not do_sample:
+            return torch.argmax(logits, dim=-1)
+        logits = logits.float() / float(temperature)
+        if top_p is not None and top_p < 1.0:
+            logits = top_p_filter(logits, top_p)
+        return torch.multinomial(torch.softmax(logits, dim=-1), 1, generator=generator)[:, 0]
+
+    return next_token

@@ -10,7 +10,8 @@ pack once per distinct image, one batched call per geometry, and scatters
 the packed features over the placeholder positions.  The JAX package's
 XLA mechanisms are left out (its LRU cache of compiled programs, the
 forward's 128-token bucket padding, `batch_sharding`); the outputs are the
-same.  Generation comes with the steering slice.
+same.  `generate` repacks the prepared right-padded batch to left padding
+and runs `llama.greedy_generate` on the multimodal embeddings.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from __future__ import annotations
 import math
 import os
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -34,7 +35,15 @@ from .clip_vit import (
     gelu,
     init_clip_params,
 )
-from .llama import InterventionFn, LlamaConfig, batch_mask, init_llama_params, llama_forward, pad_text_rows
+from .llama import (
+    InterventionFn,
+    LlamaConfig,
+    batch_mask,
+    greedy_generate,
+    init_llama_params,
+    llama_forward,
+    pad_text_rows,
+)
 
 DEFAULT_PINPOINTS = [[336, 672], [672, 336], [672, 672], [1008, 336], [336, 1008]]
 
@@ -153,6 +162,29 @@ def preprocess_anyres(image, cfg: LlavaNextConfig) -> Tuple[np.ndarray, Tuple[in
     std = np.asarray(OPENAI_CLIP_STD, dtype=np.float32)
     out = np.stack([((p.astype(np.float32) / 255.0) - mean) / std for p in patches]).transpose(0, 3, 1, 2)
     return out, (orig_h, orig_w)
+
+
+def repack_left_padded(batch: dict) -> dict:
+    """Move every row's valid tokens to the end (left padding), so the last
+    position is each row's last real token (multimodal_sae_tpu/models/
+    llava_next.py::_repack_left_padded).  `prepare_inputs` right-pads, but
+    generation appends at the right edge.  The `<image>` placeholders move
+    with their row; the pixel arrays are untouched."""
+    amask = batch.get("attention_mask")
+    if amask is None:
+        return batch
+    am = np.asarray(amask)
+    ids = np.asarray(batch["input_ids"])
+    if not (am == 0).any():
+        return batch
+    new_ids = np.zeros_like(ids)
+    new_am = np.zeros_like(am)
+    for i in range(am.shape[0]):
+        valid = ids[i][am[i].astype(bool)]
+        if len(valid):
+            new_ids[i, -len(valid):] = valid
+            new_am[i, -len(valid):] = 1
+    return {**batch, "input_ids": new_ids, "attention_mask": new_am}
 
 
 # ---- device side ----------------------------------------------------------
@@ -431,9 +463,33 @@ class LlavaNextModel:
             prompt_ids = [list(r) for r in rows]
         return self.prepare_inputs(images=list(images), prompt_ids=prompt_ids)
 
-    def generate(self, batch: dict, *args, **kwargs):
-        raise NotImplementedError(
-            "LlavaNextModel.generate is not ported yet: ROADMAP.md §1, steering and generation"
+    def generate(
+        self,
+        batch: dict,
+        max_new_tokens: int = 512,
+        interventions: Optional[Dict[str, InterventionFn]] = None,
+        intervene_prefill_only: bool = True,
+        eos_token_id: Union[int, Sequence[int], None] = None,
+        do_sample: bool = False,
+        temperature: float = 1.0,
+        top_p: Optional[float] = None,
+        seed: int = 0,
+        mark: Optional[Callable[[str], None]] = None,
+    ) -> torch.Tensor:
+        """`LlamaModel.generate` on a prepared batch: repacked to left
+        padding, embedded with its images (rows that share a pixel array
+        share one tower call), interventions keyed by either hookpoint
+        spelling.  Returns the repacked ids followed by the new ones."""
+        if eos_token_id is None:
+            eos_token_id = (getattr(self, "generation_config", None) or {}).get("eos_token_id")
+        batch = repack_left_padded(batch)
+        embeds = self._embed_multimodal(batch)
+        iv = {self._strip(k): v for k, v in interventions.items()} if interventions else None
+        return greedy_generate(
+            self.params["language_model"], self.cfg.text_config, np.asarray(batch["input_ids"]),
+            max_new_tokens=max_new_tokens, interventions=iv, intervene_prefill_only=intervene_prefill_only,
+            eos_token_id=eos_token_id, inputs_embeds=embeds, attention_mask=batch.get("attention_mask"),
+            do_sample=do_sample, temperature=temperature, top_p=top_p, seed=seed, mark=mark,
         )
 
 

@@ -80,6 +80,14 @@ EXPLAIN_MODULES = (
     "multimodal_sae_tpu_torch.pipeline",
     "multimodal_sae_tpu_torch.prompt",
 )
+GENERATE_MODULES = (
+    "multimodal_sae_tpu_torch.features.steering",
+    "multimodal_sae_tpu_torch.launch.features.filter_steering",
+    "multimodal_sae_tpu_torch.launch.features.steering",
+    "multimodal_sae_tpu_torch.launch.utils",
+    "multimodal_sae_tpu_torch.models.llama",
+    "multimodal_sae_tpu_torch.models.llava_next",
+)
 TRAIN_MODULES = (
     "multimodal_sae_tpu_torch.__main__",
     "multimodal_sae_tpu_torch.ops.adam",
@@ -112,7 +120,7 @@ def test_importing_every_module_leaves_jax_unloaded():
         "import multimodal_sae_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        f"assert set({ATTRIBUTION_MODULES + IMAGE_MODULES + LOADER_MODULES + TRAIN_MODULES + EXPLAIN_MODULES!r})"
+        f"assert set({ATTRIBUTION_MODULES + IMAGE_MODULES + LOADER_MODULES + TRAIN_MODULES + EXPLAIN_MODULES + GENERATE_MODULES!r})"
         " <= set(names)\n"
         "import chip_smoke\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
@@ -160,7 +168,7 @@ def test_explain_score_attribution_and_clip_modules_import_with_host_libraries_b
     code = (
         "import importlib, sys\n"
         f"for name in {BLOCKED!r}: sys.modules[name] = None\n"
-        f"for n in {EXPLAIN_MODULES + ATTRIBUTION_MODULES!r}: importlib.import_module(n)\n"
+        f"for n in {EXPLAIN_MODULES + ATTRIBUTION_MODULES + GENERATE_MODULES!r}: importlib.import_module(n)\n"
         "import torch\n"
         "from multimodal_sae_tpu_torch.models import clip_full\n"
         "from multimodal_sae_tpu_torch.models.clip_vit import ClipVisionConfig\n"
@@ -193,10 +201,12 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
     from multimodal_sae_tpu_torch.interp_utils import load_saes, load_single_sae
     from multimodal_sae_tpu_torch.launch.cache import cache as cli
     from multimodal_sae_tpu_torch.launch.cache import cache_image as image_cli
+    from multimodal_sae_tpu_torch.launch.features import steering as steering_cli
     from multimodal_sae_tpu_torch.launch.utils import load_subject_model
     from multimodal_sae_tpu_torch.models import LlamaConfig, LlamaModel, LlavaNextConfig, LlavaNextModel, SyntheticActivationSource
     from multimodal_sae_tpu_torch.models.clip_full import clip_metric
     from multimodal_sae_tpu_torch.models.clip_vit import ClipVisionConfig
+    from multimodal_sae_tpu_torch.models.llama import KVCache
     from multimodal_sae_tpu_torch.models.llava_next import load_llava_next
     from multimodal_sae_tpu_torch.sae import Sae
     from multimodal_sae_tpu_torch.train import SaeTrainer
@@ -225,6 +235,8 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
         lambda: stats.logits([FeatureRecord(Feature("m", 0))], torch.eye(4), torch.eye(4)),
         lambda: stats.get_neighbors({"layers.0": None}, {"layers.0": [0]}),
         lambda: clip_metric(str(tmp_path / "clip")),
+        lambda: KVCache.init(tiny, 1, 4),
+        lambda: steering_cli.main(["--text", "hi", "--sae-path", str(tmp_path), "--filters", str(tmp_path / "f.json")]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -222,8 +222,14 @@ def test_maybe_prepare_strips_padding_and_generate_raises(pair):
     assert torch.equal(got, model.capture(raw, ["model.layers.1"])["model.layers.1"])
     _close(got, jmodel.capture(padded, ["model.layers.1"])["model.layers.1"])
     assert model._maybe_prepare({"input_ids": np.array([[1, 2]]), "image": [None]}).keys() == {"input_ids"}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1, steering and generation"):
-        model.generate(model.prepare_inputs(images=[img], prompt_ids=[prompt]))
+    # Generation is ported: it gives the JAX package's tokens, and raises
+    # where the JAX package does (sampling at a non-positive temperature).
+    prepared = model.prepare_inputs(images=[img], prompt_ids=[prompt])
+    np.testing.assert_array_equal(
+        model.generate(prepared, max_new_tokens=4).numpy(),
+        np.asarray(jmodel.generate(jmodel.prepare_inputs(images=[img], prompt_ids=[prompt]), max_new_tokens=4)))
+    with pytest.raises(ValueError, match="temperature > 0"):
+        model.generate(prepared, max_new_tokens=4, do_sample=True, temperature=0.0)
 
 
 def test_placeholder_count_mismatch_raises(pair):
