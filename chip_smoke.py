@@ -160,6 +160,35 @@ Phases; any failure raises and ends the run with a non-zero exit code:
    prompt (2,360 tokens), 8 features, 32 greedy tokens: the tower once per
    generate, the launch counts, the cache-free check, K3 at
    (8, 32, 8, 2,360, 128);
+   image_train_path, on the image cache phase's 25-layer subject:
+   `SaeTrainer` with a collator of this script over prepared rows
+   (131,072 latents, k = 256, fp32, batch 4, grad_acc_steps 2), four
+   batches of 480 x 640 images and two of the mixed geometries
+   (right-padded to 2,929), AuxK on those two with half the latents dead;
+   checks the row lengths, the launch counts, finite losses, the AuxK loss,
+   the first window's dead-feature counters (8 planted dead latents at
+   the window's collated positions, every other latent at 0), and the
+   card's `accumulate` against the CPU's on 1,024 captured rows of a
+   mixed batch (512 of them pad rows); expanded positions/s (what the
+   trainer counts here, pads included; on the `--mm_data` route it counts
+   un-expanded ids) and valid tokens/s over batches 3-6, host
+   preprocessing excluded, one batch's stages, the peak;
+   image_attribution_path, on the image steering phase's subject and SAE:
+   `fast_attribution_maps` at model.layers.24 over one probe row (a 480 x
+   640 image in the chat prompt, 2,358 tokens), 16 features at
+   feature_batch 8 (8 from the last position's pool, 8 in no token's
+   pool), the tower once, the launch counts, exact zeros outside, K2's
+   decode and splice checks at this prompt; the fast path against the
+   general path for 2 features (the general path replaying the fast
+   path's selections); a ragged batch (that row and a 1,000 x 1,000 image
+   row of 2,946 tokens, left-repacked) with exact zeros at the pads, each
+   row equal bit for bit to the row alone with its pad, and the padded row
+   against itself without pads, the batch's pool replayed (the hook's
+   hidden state, the splice's gradient and the saliency within
+   IMAGE_PAD_SHIFT_*; at 4 text layers in fp32 within
+   IMAGE_PAD_SHIFT_FP32_REL, read in bf16 with K3 and eager); then K3's chain (forward with lse, backward) at
+   the suffix's two shapes (8, 32, 8, 2,358, 128) and (8, 32, 8, 2,946,
+   128) left-padded, against the plain pair and timed;
 12. a `kernels` JSON line, the card line, and the result line.
 
 Needs one CUDA card; exits non-zero without one.  Imports nothing of JAX.
@@ -368,13 +397,15 @@ def phase_block_max(dev) -> dict:
     """K1 at the main path's two filter levels (level 1 over the 131,072
     latents at block 64, level 2 over the 16,384 candidates at block 8, fp32),
     for the text cache's 8 x 2,048 tokens, the image cache's 9,360 (4
-    images of 2,341 tokens less the BOS) and one attribution prompt's 2,432
-    (each splice's top-k on the general path), and at bf16 block 128."""
+    images of 2,341 tokens less the BOS), one attribution prompt's 2,432
+    (each splice's top-k on the general path) and the image training
+    batches' 9,364 (4 x 2,341) and 11,716 (4 x 2,929, pads included), and
+    at bf16 block 128."""
     from multimodal_sae_tpu_torch.ops import block_max as bm
 
     gen = torch.Generator(device=dev).manual_seed(1)
     zero = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
-    per_step = {"text": dict(zero), "image": dict(zero), "prompt": dict(zero)}
+    per_step = {step: dict(zero) for step in ("text", "image", "prompt", "train_uniform", "train_mixed")}
     max_abs_err = 0.0
     for n, w, block, dtype, step in (
         (16384, 131072, 64, torch.float32, "text"),
@@ -383,6 +414,10 @@ def phase_block_max(dev) -> dict:
         (9360, 16384, 8, torch.float32, "image"),
         (2432, 131072, 64, torch.float32, "prompt"),
         (2432, 16384, 8, torch.float32, "prompt"),
+        (9364, 131072, 64, torch.float32, "train_uniform"),
+        (9364, 16384, 8, torch.float32, "train_uniform"),
+        (11716, 131072, 64, torch.float32, "train_mixed"),
+        (11716, 16384, 8, torch.float32, "train_mixed"),
         (4096, 131072, 128, torch.bfloat16, None),
     ):
         x = torch.randn(n, w, generator=gen, device=dev, dtype=torch.float32).to(dtype)
@@ -419,7 +454,8 @@ def phase_block_max(dev) -> dict:
           "dtypes": ["float32", "bfloat16"], "bitexact": True})
     torch.cuda.empty_cache()
     return {**per_step["text"], "max_abs_err": max_abs_err, "image_step": per_step["image"],
-            "prompt_step": per_step["prompt"]}
+            "prompt_step": per_step["prompt"],
+            "image_train_steps": {"uniform": per_step["train_uniform"], "mixed": per_step["train_mixed"]}}
 
 
 def _check_attention(fa, q, k, v, pad_mask, scale, what) -> float:
@@ -915,6 +951,17 @@ def phase_cache_path(dev, card: str, work_dir: str) -> dict:
             "tokens": np.stack([r["input_ids"] for r in rows])}
 
 
+def k2_decode_bound(N: int, k: int, d: int, distinct: int) -> dict:
+    """K2's decode mode over (N, k) selections of an fp32 decoder with d
+    columns: the larger of the bytes it must move (each distinct row read
+    once, the output written once, the indices and values read) over the
+    memory rate and its N * k * d fp32 FMAs over the CUDA cores' rate."""
+    bytes_ms = (distinct * d * 4 + N * d * 4 + N * k * 8) / HBM_BYTES_PER_S * 1e3
+    fma_ms = N * k * d / FP32_FMAS * 1e3
+    return {"bound_ms": max(bytes_ms, fma_ms), "bound_bytes_ms": bytes_ms, "bound_fma_ms": fma_ms,
+            "bound_by": "bytes" if bytes_ms >= fma_ms else "operations"}
+
+
 def check_gather_rows(W: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor, chunk) -> dict:
     """K2 on the attribution prefix's clean top-k (`idx`, `vals`: tokens x k)
     of the decoder `W`: copy mode bit-exact against `W[idx]` on the first 128
@@ -958,13 +1005,12 @@ def check_gather_rows(W: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor, ch
     del got, ref, again
     idx_long = idx.long()
     distinct = torch.unique(idx).numel()
-    nbytes = distinct * d * 4 + N * d * 4 + N * k * 8
     decode = {
         "tokens": N, "k": k, "distinct_rows": distinct, "max_abs_err": err, "err_bound": err_bound,
         "deterministic": True, "kernel_ms": time_ms(lambda: gr.gather_decode(idx, vals, W)),
         "plain_ms": time_ms(lambda: gr.gather_decode_plain(idx, vals, W), iters=3),
         "library_ms": time_ms(lambda: F.embedding_bag(idx_long, W, per_sample_weights=vals, mode="sum")),
-        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "no_reuse_gb": N * k * d * 4 / 1e9,
+        **k2_decode_bound(N, k, d, distinct), "no_reuse_gb": N * k * d * 4 / 1e9,
     }
     c_vals, c_idx = chunk
     c_distinct = torch.unique(c_idx).numel()
@@ -972,14 +1018,13 @@ def check_gather_rows(W: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor, ch
         "tokens": c_idx.shape[0], "distinct_rows": c_distinct,
         "kernel_ms": time_ms(lambda: gr.gather_decode(c_idx, c_vals, W)),
         "library_ms": time_ms(lambda: F.embedding_bag(c_idx.long(), W, per_sample_weights=c_vals, mode="sum")),
-        "bound_ms": (c_distinct * d * 4 + c_idx.numel() * 8 + c_idx.shape[0] * d * 4) / HBM_BYTES_PER_S * 1e3,
-        "no_reuse_gb": c_idx.numel() * d * 4 / 1e9,
+        **k2_decode_bound(c_idx.shape[0], c_idx.shape[1], d, c_distinct), "no_reuse_gb": c_idx.numel() * d * 4 / 1e9,
     }
     emit({"phase": "gather_rows", "W": [W.shape[0], d], "dtype": "float32", "copy": copy,
           "decode_clean_topk": decode, "decode_chunk_of_8": decode_chunk})
     torch.cuda.empty_cache()
     return {"ms": decode["kernel_ms"], "plain_ms": decode["plain_ms"], "bound_ms": decode["bound_ms"],
-            "bound_by": "bytes", "library_ms": decode["library_ms"], "max_abs_err": err}
+            "bound_by": decode["bound_by"], "library_ms": decode["library_ms"], "max_abs_err": err}
 
 
 def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -1732,26 +1777,40 @@ IMAGE_BOS = 128000
 # K3's key mask is held by phase_flash_attention's right-pad cases.
 
 
-def _image_batch(cfg, sizes, rng) -> dict:
-    """A prepared LLaVA-NeXT batch as `prepare_inputs` builds it (the card's
-    machine has no PIL): the prompt [BOS, <image>] with the placeholder
-    expanded to each image's token count, right-padded with a mask, and a
-    pixel array of each image's crops drawn from `rng`, one array per
+def _image_rows(cfg, sizes, rng) -> list:
+    """Prepared LLaVA-NeXT rows, one image each: the prompt [BOS, <image>]
+    and a pixel array of the image's crops drawn from `rng`, one array per
     image so that the tower runs once per image."""
-    from multimodal_sae_tpu_torch.models.llava_next import get_number_of_features, image_size_to_num_patches
+    from multimodal_sae_tpu_torch.models.llava_next import image_size_to_num_patches
 
     S = cfg.vision_config.image_size
-    pixels, rows = [], []
-    for h, w in sizes:
-        n_crops = image_size_to_num_patches((h, w), cfg.image_grid_pinpoints, S)
-        pixels.append(rng.standard_normal((n_crops, 3, S, S), dtype=np.float32))
-        rows.append([IMAGE_BOS] + [cfg.image_token_index] * get_number_of_features(h, w, cfg))
-    ids = np.zeros((len(rows), max(map(len, rows))), np.int64)
+    return [{"prompt_ids": [IMAGE_BOS, cfg.image_token_index], "image_size": (h, w),
+             "pixel_values": rng.standard_normal(
+                 (image_size_to_num_patches((h, w), cfg.image_grid_pinpoints, S), 3, S, S), dtype=np.float32)}
+            for h, w in sizes]
+
+
+def _collate_prepared(cfg, rows: list) -> dict:
+    """A batch of `_image_rows` rows as `prepare_inputs` builds it (the
+    card's machine has no PIL): each `<image>` placeholder expanded to its
+    image's token count, the rows right-padded with a mask."""
+    from multimodal_sae_tpu_torch.models.llava_next import get_number_of_features
+
+    expanded = [[t for t0 in row["prompt_ids"]
+                 for t in ([t0] * get_number_of_features(*row["image_size"], cfg)
+                           if t0 == cfg.image_token_index else [t0])] for row in rows]
+    ids = np.zeros((len(rows), max(map(len, expanded))), np.int64)
     mask = np.zeros_like(ids)
-    for i, row in enumerate(rows):
+    for i, row in enumerate(expanded):
         ids[i, : len(row)] = row
         mask[i, : len(row)] = 1
-    return {"input_ids": ids, "attention_mask": mask, "pixel_values": pixels, "image_sizes": list(sizes)}
+    return {"input_ids": ids, "attention_mask": mask, "pixel_values": [row["pixel_values"] for row in rows],
+            "image_sizes": [row["image_size"] for row in rows]}
+
+
+def _image_batch(cfg, sizes, rng) -> dict:
+    """A prepared batch of one [BOS, <image>] row per image of `sizes`."""
+    return _collate_prepared(cfg, _image_rows(cfg, sizes, rng))
 
 
 def check_cached_topk(locs, acts, h, row0: int, sae) -> None:
@@ -1929,8 +1988,8 @@ def phase_image_cache_path(dev, card: str) -> dict:
         "smoke_peak_gb": peak_gb, "seconds": seconds, "stage_ms_batch0": stage_ms, "launches": launches,
         "entries": n_entries, "n_splits": n_splits, "alone_vs_mixed": alone, "card": card,
     })
-    del model, saes, sae
-    return {"launches": launches}
+    del saes, sae
+    return {"launches": launches, "model": model}
 
 
 def _record_key(record) -> tuple:
@@ -2207,42 +2266,67 @@ def phase_stats_path(dev, card: str, model, sae, records, selected) -> dict:
     return {"launches": launches}
 
 
-def check_flash_bwd_b1(dev) -> dict:
-    """The K3 chain at the general path's attention shape, one prompt
-    (1, 32, kvH 8, 2,432, 128) bf16, against the plain pair; then the
-    backward, and the forward with lse, each timed beside its bound, SDPA's
-    GQA call and the plain version."""
+def check_flash_chain(dev, B: int, S: int, left_pads=None, seed: int = 11) -> dict:
+    """The K3 chain at (B, 32, kvH 8, S, 128) bf16 against the plain pair on
+    its first min(B, 2) rows, row b left-padded by left_pads[b % len] (None:
+    no mask; dO is 0 on the rows without a valid key, as on every caller's
+    path); then the backward, and the forward with lse, on all B rows, each
+    timed beside its bound, SDPA's call (GQA, or k and v repeated under a
+    mask) and the plain version."""
+    import torch.nn.functional as F
+
     from multimodal_sae_tpu_torch.ops import flash_attention as fa
 
-    B, H, kvH, S, hd = 1, 32, 8, 2432, 128
+    H, kvH, hd = 32, 8, 128
     scale = hd ** -0.5
-    gen = torch.Generator(device=dev).manual_seed(11)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn(B, H, S, hd, generator=gen, device=dev).to(torch.bfloat16)
     k = torch.randn(B, kvH, S, hd, generator=gen, device=dev).to(torch.bfloat16)
     v = torch.randn(B, kvH, S, hd, generator=gen, device=dev).to(torch.bfloat16)
     do = torch.randn(B, H, S, hd, generator=gen, device=dev).to(torch.bfloat16)
-    line = _check_bwd_chain(fa, q, k, v, None, do, scale, f"({B}, {H}, {kvH}, {S}, {hd})")
-    o, lse = fa.flash_attention_fwd(q, k, v, None, scale, need_lse=True)
-    kernel_ms = time_ms(lambda: fa.flash_attention_bwd(q, k, v, None, o, lse, do, scale))
-    plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, None, o, lse, do, scale), iters=2, warmup=1)
-    forward = {"ms": time_ms(lambda: fa.flash_attention_fwd(q, k, v, None, scale, need_lse=True)),
-               "plain_ms": time_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, None, scale), iters=2, warmup=1),
-               "library_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                   q, k, v, is_causal=True, scale=scale, enable_gqa=True))}
-    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-    out = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg, is_causal=True, scale=scale, enable_gqa=True)
+    pads = [left_pads[b % len(left_pads)] for b in range(B)] if left_pads else [0] * B
+    pad_mask = sdpa_mask = None
+    if left_pads:
+        real = torch.arange(S, device=dev)[None, :] >= torch.tensor(pads, device=dev)[:, None]
+        pad_mask = real.to(torch.int32)
+        do = do * real[:, None, :, None]
+        sdpa_mask = torch.ones(S, S, dtype=torch.bool, device=dev).tril() & real[:, None, None, :]
+    n = min(B, 2)
+    what = f"({n}, {H}, {kvH}, {S}, {hd}), left pads {pads[:n]}"
+    line = _check_bwd_chain(fa, q[:n], k[:n], v[:n], None if pad_mask is None else pad_mask[:n], do[:n], scale, what)
+    torch.cuda.empty_cache()
+    o, lse = fa.flash_attention_fwd(q, k, v, pad_mask, scale, need_lse=True)
+    kernel_ms = time_ms(lambda: fa.flash_attention_bwd(q, k, v, pad_mask, o, lse, do, scale))
+    plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, pad_mask, o, lse, do, scale), iters=2, warmup=1)
+    torch.cuda.empty_cache()
+    if sdpa_mask is None:
+        kr, vr, sdpa = k, v, dict(is_causal=True, scale=scale, enable_gqa=True)
+    else:  # SDPA's masked kernels take k and v repeated to H heads
+        kr, vr = (t.repeat_interleave(H // kvH, dim=1) for t in (k, v))
+        sdpa = dict(attn_mask=sdpa_mask, scale=scale)
+    forward = {"ms": time_repeats(lambda: fa.flash_attention_fwd(q, k, v, pad_mask, scale, need_lse=True))["median"],
+               "plain_ms": time_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, pad_mask, scale), iters=2, warmup=1),
+               "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, kr, vr, **sdpa))}
+    torch.cuda.empty_cache()
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, kr, vr))
+    out = F.scaled_dot_product_attention(qg, kg, vg, **sdpa)
     library_ms = time_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True))
-    pairs = B * H * S * (S + 1) / 2
+    # Causal (query, key) pairs with a valid key: L (L + 1) / 2 a head for
+    # a row of L real tokens.
+    pairs = H * sum((S - p) * (S - p + 1) / 2 for p in pads)
     nbytes = (4 * B * H * S * hd + 4 * B * kvH * S * hd) * 2 + B * H * S * 4
     flops = 10 * hd * pairs
     fwd_flops, fwd_bytes = 4 * hd * pairs, (2 * B * H * S * hd + 2 * B * kvH * S * hd) * 2 + B * H * S * 4
     forward.update(bound_ms=max(fwd_flops / BF16_FLOPS, fwd_bytes / HBM_BYTES_PER_S) * 1e3,
-                   bound_by="operations" if fwd_flops / BF16_FLOPS > fwd_bytes / HBM_BYTES_PER_S else "bytes")
-    del q, k, v, do, o, lse, qg, kg, vg, out
+                   bound_by="operations" if fwd_flops / BF16_FLOPS > fwd_bytes / HBM_BYTES_PER_S else "bytes",
+                   tflops=fwd_flops / forward["ms"] / 1e9)
+    del q, k, v, do, o, lse, qg, kg, vg, out, kr, vr, sdpa_mask
     torch.cuda.empty_cache()
-    return {"shape": [B, H, kvH, S, hd], "forward_with_lse": forward, "max_abs_err": max(e["max_abs_err"] for e in line["errors"].values()),
-            "errors": line["errors"], "deterministic": True, "ms": kernel_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3,
+    return {"shape": [B, H, kvH, S, hd], "left_pads": pads if left_pads else None, "forward_with_lse": forward,
+            "max_abs_err": max(e["max_abs_err"] for e in line["errors"].values()), "errors": line["errors"],
+            "lse_max_abs_err": line["lse_max_abs_err"], "deterministic": True, "ms": kernel_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3,
             "bound_by": "operations" if flops / BF16_FLOPS > nbytes / HBM_BYTES_PER_S else "bytes",
             "tflops": flops / kernel_ms / 1e9}
 
@@ -2269,20 +2353,26 @@ def _topk_at_hooks(model, batch, sae_dict) -> dict:
     return tops
 
 
-def _selections(record: list, replay: bool):
-    """A context in which every splice's top-k (the general path's
-    `select_topk`) is recorded or replayed.  Recording appends each call's
-    selected indices to `record`.  Replaying takes them back in order: the
-    selected values are the latents gathered at the recorded indices (the
-    same gradient into them as top-k's), and each call appends, for the
-    tokens whose own top-k would select another set, the relative gap
-    between their own k-th latent and the weakest recorded one."""
+def _selections(record: list, replay: bool, module=None):
+    """A context in which every `select_topk` of `module` (the general
+    path's splices, features.patching.utils, by default; fast attribution's
+    prefix pool is features.patching.attribution's) is recorded or
+    replayed.  Recording appends each call's selected indices to `record`.
+    Replaying takes the entries back in order: the selected values are the
+    latents gathered at the recorded indices (the same gradient into them
+    as top-k's), and each call appends, for the tokens whose own top-k
+    would select another set, the gap between their own k-th latent and
+    the weakest recorded pick, relative to that k-th latent; an entry
+    (indices, values) that carries the recording run's values measures the
+    gap relative to the token's noise instead, the largest |own - recorded|
+    over its picks."""
     import contextlib
 
     from multimodal_sae_tpu_torch.features.patching import utils as splice_utils
     from multimodal_sae_tpu_torch.sae.model import EncoderOutput
 
-    real, recorded = splice_utils.select_topk, iter(list(record))
+    module = module or splice_utils
+    real, recorded = module.select_topk, iter(list(record))
     gaps = []
 
     def record_call(latents, k):
@@ -2291,24 +2381,27 @@ def _selections(record: list, replay: bool):
         return out
 
     def replay_call(latents, k):
-        idx = next(recorded).to(latents.device)
+        entry = next(recorded)
+        idx, recorded_vals = entry if isinstance(entry, tuple) else (entry, None)
+        idx = idx.to(latents.device)
         vals = latents.gather(-1, idx.long())
         own = torch.topk(latents.detach(), k, dim=-1)
         rows = (own.indices.sort(-1).values != idx.long().sort(-1).values).any(-1)
         kth = own.values[:, -1]
-        gap = (kth - vals.detach().min(-1).values) / kth.clamp_min(torch.finfo(kth.dtype).tiny)
+        scale = kth if recorded_vals is None else (vals.detach() - recorded_vals.to(vals.device)).abs().max(-1).values
+        gap = (kth - vals.detach().min(-1).values) / scale.clamp_min(torch.finfo(kth.dtype).tiny)
         gaps.append(gap[rows].cpu())
         return EncoderOutput(vals, idx)
 
     @contextlib.contextmanager
     def patched():
-        splice_utils.select_topk = replay_call if replay else record_call
+        module.select_topk = replay_call if replay else record_call
         try:
             yield gaps
         finally:
-            splice_utils.select_topk = real
+            module.select_topk = real
         if replay and next(recorded, None) is not None:
-            raise AssertionError("reduced run: the CPU made fewer selections than the card")
+            raise AssertionError("the replaying run made fewer selections than were recorded")
 
     return patched()
 
@@ -2467,7 +2560,7 @@ def phase_general_attribution_path(dev, card: str, model, sae24) -> dict:
                             feats[:1])
     dvals = check_decode_dvals(sae24.params["W_dec"], upper_idx)
     del upper_idx
-    k3_bwd = check_flash_bwd_b1(dev)
+    k3_bwd = check_flash_chain(dev, 1, 2432)
     reduced = _reduced_comparison(model, sae_dict, dev)
     del sae_dict, sae16
     gc.collect()
@@ -2985,7 +3078,7 @@ def _check_clamp_chunk(sae, x: torch.Tensor, feats_of_tokens: torch.Tensor) -> d
           "ms": time_ms(lambda: gr.gather_decode(idx, vals, W)),
           "plain_ms": time_ms(lambda: gr.gather_decode_plain(idx, vals, W), iters=3),
           "library_ms": time_ms(lambda: F.embedding_bag(idx_long, W, per_sample_weights=vals, mode="sum")),
-          "bound_ms": (distinct * d * 4 + N * d * 4 + N * k * 8) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+          **k2_decode_bound(N, k, d, distinct)}
     del latents, cand, got, ref
     torch.cuda.empty_cache()
     return {"block_max": k1, "gather_decode": k2}
@@ -3333,9 +3426,9 @@ def phase_image_steering_path(dev, card: str) -> dict:
         bound = _decode_bound(lm, cfg.text_config, F_, S_p, new)
     finally:
         llava_next.project_image_features, steering.load_image = real_tower, real_load
+        del model.prepare_inputs  # the class's own again, for the attribution phase
     k3_prefill = _attention_case(fa, torch.Generator(device=dev).manual_seed(16), dev, F_, 32, 8, S_p, 128, None,
                                  phase="flash_attention_prefill")
-    del model, sae
     gc.collect()
     torch.cuda.empty_cache()
     emit({
@@ -3348,7 +3441,462 @@ def phase_image_steering_path(dev, card: str) -> dict:
         "decode_step_bound": bound, "cache_vs_no_cache": cache_free, "k3_prefill": k3_prefill, "card": card,
     })
     total = {name: sum(run[name] for run in runs) for name in runs[0]}
-    return {"launches": total, "k3_prefill": k3_prefill, "decode_step": {"ms": timed["step_ms"], **bound}}
+    return {"launches": total, "k3_prefill": k3_prefill, "decode_step": {"ms": timed["step_ms"], **bound},
+            "model": model, "sae": sae}
+
+
+def phase_image_train_path(dev, card: str, model) -> dict:
+    """SAE training on multimodal rows at llama3-llava-next-8b's widths (the
+    image cache phase's random model: CLIP-L/336, projector, 25 text
+    layers; bf16, flash attention) through `SaeTrainer` with a collator:
+    model.layers.24, 131,072 latents, k = 256, fp32, batch 4, grad_acc_steps
+    2, AuxK on.  Six batches: four of 480 x 640 images, then two of the
+    four mixed geometries (right-padded to 2,929); the rows carry prepared
+    pixel arrays and a collator of this script builds the batches (the
+    card's machine has no PIL; the PIL route's collator is held on the CPU)."""
+    from collections import defaultdict
+
+    from multimodal_sae_tpu_torch.config import SaeConfig, TrainConfig
+    from multimodal_sae_tpu_torch.device import setup
+    from multimodal_sae_tpu_torch.train import SaeTrainer
+    from multimodal_sae_tpu_torch.train.trainer import _iter_batches
+
+    setup(dev)
+    hook, B, acc, L, k = "model.layers.24", 4, 2, 131072, 256
+    cfg = model.cfg
+    rng = np.random.default_rng(31)
+    rows = _image_rows(cfg, [UNIFORM_HW] * 4 * B + list(MIXED_HW) * 2, rng)
+
+    def collate(batch_rows):
+        return _collate_prepared(cfg, batch_rows)
+
+    config = TrainConfig(sae=SaeConfig(num_latents=L, k=k), batch_size=B, grad_acc_steps=acc,
+                         micro_acc_steps=TRAIN_MICRO, lr_warmup_steps=0, auxk_alpha=1 / 32, log_to_wandb=False,
+                         hookpoints=[hook], save_every=10**9, mm_data=True)
+    seconds = {}
+    t0 = time.perf_counter()
+    trainer = SaeTrainer(config, rows, model, device=dev, collator=collate)
+    torch.cuda.synchronize()
+    seconds["init_trainer"] = time.perf_counter() - t0
+    # Planted dead latents: a zero encoder column and a negative bias give
+    # a pre-activation of exactly 0, so they never enter a top-k (every
+    # token has far more than k positive latents), get no gradient and stay
+    # dead through the first window; their counters must then hold the
+    # window's positions.
+    planted = torch.arange(0, L, L // 8, device=dev)
+    sae_params = trainer.saes[hook].params
+    with torch.no_grad():
+        sae_params["W_enc"][:, planted] = 0
+        sae_params["b_enc"][planted] = -1.0
+    batches = list(_iter_batches(rows, B, collator=trainer.collator))
+    lengths = [tuple(int(n) for n in b["attention_mask"].sum(1)) for b in batches]
+    if lengths != [(MIXED_LENGTHS[0],) * B] * 4 + [MIXED_LENGTHS] * 2:
+        raise AssertionError(f"the collator gave row lengths {lengths}")
+    metrics = {hook: defaultdict(float)}
+    losses = []
+    # The trainer counts every position of the collated ids toward the
+    # dead-feature threshold.  This script's collator hands it expanded rows
+    # (pads included), so here it counts expanded positions; on the
+    # `--mm_data` route it collates un-expanded ids, an image one token
+    # (`pil_route`), and counts about a thousandth as many.
+    positions = [b["input_ids"].size for b in batches]
+    valid = [int(b["attention_mask"].sum()) for b in batches]
+    pil_route = [sum(len(r["prompt_ids"]) for r in rows[i * B:(i + 1) * B]) for i in range(len(batches))]
+
+    def step(batch, mark=None):
+        trainer.step(batch, metrics, mark=mark)
+        losses.append({key: val * acc for key, val in metrics[hook].items()})
+        metrics[hook].clear()
+
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    for i, batch in enumerate(batches):
+        if i == 2:
+            torch.cuda.synchronize()
+            t_steady = time.perf_counter()
+        if i == 4:
+            # AuxK on the mixed batches: half the latents dead (65,536
+            # against k_aux = 2,048).
+            trainer.num_tokens_since_fired[hook][::2] = config.dead_feature_threshold + 1
+            trainer._refresh_dead_mask(hook)
+        if i == 5:
+            marks = StageMarks()
+            step(batch, mark=marks)
+        else:
+            step(batch)
+        if i == 1:  # the first boundary: each latent's count is 0 or the window's positions
+            counts = trainer.num_tokens_since_fired[hook]
+            window = positions[0] + positions[1]
+            window_counts = {int(c): int(n) for c, n in zip(*np.unique(counts, return_counts=True))}
+            if set(window_counts) != {0, window} or not np.all(counts[planted.cpu().numpy()] == window):
+                raise AssertionError(f"dead-feature counters {window_counts} after the first window of {window} "
+                                     f"positions, planted dead latents {counts[planted.cpu().numpy()].tolist()}")
+    torch.cuda.synchronize()
+    seconds["six_batches"] = time.perf_counter() - t0
+    steady_s = time.perf_counter() - t_steady
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    stage_ms = marks.ms()
+    launches = kernel_counts()
+    _expect_launches(launches, {"block_max": 2 * TRAIN_MICRO * len(batches), "flash_attention": 25 * len(batches)},
+                     "image training")
+    if not all(np.isfinite(v) for line in losses for v in line.values()):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not all(line["auxk"] > 0 for line in losses[4:]):
+        raise AssertionError(f"AuxK loss {[line['auxk'] for line in losses[4:]]} with half the latents dead")
+    if not peak_gb < 80:
+        raise AssertionError(f"image training peaked at {peak_gb} GB")
+    if (trainer.global_step, trainer.opt_step) != (len(batches), len(batches) // acc):
+        raise AssertionError(f"step counters {(trainer.global_step, trainer.opt_step)}")
+
+    # One accumulate against the CPU on captured rows of a mixed batch: the
+    # end of the 336 x 336 image's row and the pad rows after it.
+    with torch.no_grad():
+        h = model.capture(batches[4], [hook])[hook]
+    S = h.shape[1]
+    cut = S + MIXED_LENGTHS[1]  # row 1's first pad position in the flattened rows
+    t0 = time.perf_counter()
+    cpu_line = check_accumulate_cpu(h.reshape(-1, h.shape[-1])[cut - 512: cut + 512], dev)
+    seconds["cpu_cross_check"] = time.perf_counter() - t0
+    cpu_line["pad_rows"] = 512
+    del trainer, h
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({
+        "phase": "image_train_path",
+        "subject": "llama3-llava-next-8b widths (CLIP-L/336, projector, 25 text layers), bf16, flash attention",
+        "sae": "4096 -> 131072 latents, k=256, fp32", "hookpoint": hook, "batch_size": B, "grad_acc_steps": acc,
+        "micro_acc_steps": TRAIN_MICRO, "auxk_alpha": config.auxk_alpha, "auxk_from_batch": 5,
+        "batches": [b["image_sizes"] for b in batches], "row_lengths": lengths,
+        "expanded_positions_per_s": sum(positions[2:]) / steady_s, "tokens_per_s_valid": sum(valid[2:]) / steady_s,
+        "tokens_per_s_over": "batches 3-6, host preprocessing excluded",
+        "expanded_positions_per_batch": positions, "window_counts_to_latents": window_counts,
+        "planted_dead_latents": planted.tolist(), "valid_tokens_per_batch": valid,
+        "pil_route_ids_per_batch": pil_route,
+        "images_per_s": (len(batches) - 2) * B / steady_s, "seconds": seconds, "stage_ms_batch6": stage_ms,
+        "peak_gb": peak_gb, "losses": losses, "launches": launches, "cpu_cross_check": cpu_line, "card": card,
+    })
+    return {"launches": launches}
+
+
+RAGGED_HW = (1000, 1000)
+# The ragged probe row: its image takes 2,928 tokens, the row 2,946 with the
+# chat prompt; the 480 x 640 row beside it (2,358) is left-padded by 588.
+IMAGE_PAD_SHIFT_HIDDEN_REL = 5e-2
+IMAGE_PAD_SHIFT_GRAD_REL = 5e-2
+IMAGE_PAD_SHIFT_SALIENCY = 0.15
+# The left-padded probe row of the ragged batch against the same row alone
+# without pads, on the bf16 subject: the hidden state at the hook within
+# 5e-2 relative L2 at every real position, the gradient at the splice
+# (times 2: the batch's metric means over its rows) within 5e-2 relative
+# L2 over the row, and each feature's saliency within 0.15 of the largest
+# feature's saliency norm (L2 over the row).  Left padding moves the row's
+# RoPE positions by the pad (588), which changes nothing in exact
+# arithmetic and leaves bf16 rounding at each of the 25 prefix layers and
+# the 7 suffix layers forward and backward (2^-9 relative a rounding,
+# compounding through the random subject).  The saliency is held against
+# the largest feature's norm, not its own: a feature's saliency is a
+# projection of the gradient that can nearly cancel, and its own norm is
+# then no scale for that rounding (on an H100, one feature at a fifteenth
+# of the largest norm read 130% of its own norm and 8.7% of the largest;
+# eager bf16 attention at 4 layers reads up to 6.9%).  A pad key read, or a lost
+# or misplaced row, moves them by O(1).
+IMAGE_PAD_SHIFT_FP32_REL = 1e-3
+# The same comparison on the subject cut to 4 text layers in fp32 with
+# eager attention (the hook at model.layers.2): each feature's saliency,
+# and the gradient, within 1e-3 of its own L2 norm.  Without bf16
+# rounding the pad shift must leave the positions, masks, metric token and
+# pool as they are; the same cut in bf16, with K3 and with eager
+# attention, is read beside it.
+
+
+def _splice_gradient(model, hook: str, batch: dict, metric):
+    """(the hook's hidden state, the gradient of the metric at the splice):
+    the prefix capture and the suffix `forward_from_layer` that fast
+    attribution runs, without the SAE."""
+    with torch.no_grad():
+        h = model.capture(batch, [hook])[hook]
+    delta = torch.zeros(h.shape, dtype=torch.float32, device=h.device, requires_grad=True)
+    (grad,) = torch.autograd.grad(metric(model.forward_from_layer(h + delta.to(h.dtype), hook, batch)), delta)
+    return h, grad
+
+
+def _at_depth(model, layers: int, dtype, flash: bool):
+    """`model` (a LlavaNextModel) cut to its first `layers` text layers,
+    every weight cast to `dtype`, with K3 or eager attention."""
+    import dataclasses
+
+    from multimodal_sae_tpu_torch.models.llava_next import LlavaNextModel
+
+    def cast(tree):
+        if isinstance(tree, dict):
+            return {key: cast(val) for key, val in tree.items()}
+        if isinstance(tree, list):
+            return [cast(val) for val in tree]
+        return tree.to(dtype) if torch.is_tensor(tree) and tree.is_floating_point() else tree
+
+    params = dict(model.params, language_model=dict(model.params["language_model"]))
+    params["language_model"]["layers"] = params["language_model"]["layers"][:layers]
+    text = dataclasses.replace(model.cfg.text_config, num_hidden_layers=layers, flash_attention=flash)
+    return LlavaNextModel(cast(params), dataclasses.replace(model.cfg, text_config=text))
+
+
+def _pad_shift(model, hook: str, sae, padded: tuple, single: tuple, pad: int) -> dict:
+    """Row 0 of the ragged probe batch `padded` (batch, metric), left-padded
+    by `pad`, against the same row alone without pads `single`, as
+    `Attribution` builds the probe row alone: the hook's hidden state, the
+    splice's gradient (exactly 0 at the pads), and the saliency of each
+    row's 2 largest features at its last position, the row alone
+    replaying the batch's prefix pool (its own would differ at near ties).
+    Returns each as its relative L2 reading."""
+    from multimodal_sae_tpu_torch.features.patching import attribution, build_fast_attribution, fast_attribution_maps
+
+    (batch2, metric2), (one, metric1) = padded, single
+    S2 = batch2["input_ids"].shape[1]
+    h_pad, g_pad = _splice_gradient(model, hook, batch2, metric2)
+    h_one, g_one = _splice_gradient(model, hook, one, metric1)
+    if bool(g_pad[0, :pad].any()):
+        raise AssertionError("the splice's gradient at the pad positions is not exactly 0")
+    h_pad, h_one = h_pad[0, pad:].float(), h_one[0].float()
+    hidden_rel = ((h_pad - h_one).norm(dim=-1) / h_one.norm(dim=-1)).max().item()
+    grad_rel = ((2 * g_pad[0, pad:] - g_one[0]).norm() / g_one[0].norm()).item()
+    del h_pad, g_pad, h_one, g_one
+    step = build_fast_attribution(model, hook, sae, batch2, metric2)
+    pool = tuple(t.view(2, S2, -1)[0, pad:].cpu() for t in (step.wide_idx, step.wide_vals))
+    feats = step.wide_idx[S2 - 1, :2].long().tolist() + step.wide_idx[2 * S2 - 1, :2].long().tolist()
+    del step
+    torch.cuda.empty_cache()
+    got = 2 * _saliency(fast_attribution_maps(model, hook, sae, batch2, metric2, feats, feature_batch=2,
+                                              progress=False), hook)[:, 0, pad:]
+    with _selections([pool], replay=True, module=attribution) as gaps:
+        want = _saliency(fast_attribution_maps(model, hook, sae, one, metric1, feats, feature_batch=2,
+                                               progress=False), hook)[:, 0]
+    gaps = torch.cat(gaps)
+    norms, err = np.linalg.norm(want, axis=-1), np.linalg.norm(got - want, axis=-1)
+    return {"features": feats, "hidden_max_row_l2_rel": hidden_rel, "grad_l2_rel": grad_rel,
+            "own_pool_would_differ": len(gaps), "worst_gap_to_noise": gaps.max().item() if len(gaps) else 0.0,
+            "saliency_norm_to_largest": (norms / norms.max()).tolist(),
+            "saliency_l2_rel": (err / np.maximum(norms, np.finfo(np.float32).tiny)).tolist(),
+            "saliency_l2_rel_to_largest": (err / norms.max()).tolist()}
+
+
+def phase_image_attribution_path(dev, card: str, model, sae) -> dict:
+    """Fast attribution on the LLaVA-NeXT subject at llama3-llava-next-8b's
+    widths (the image steering phase's random model: CLIP-L/336, projector,
+    32 text layers and the LM head, bf16, flash attention) with its SAE at
+    model.layers.24 (131,072 latents, k = 256, fp32, decoder), through
+    `fast_attribution_maps` on probe batches built as `Attribution` builds
+    them (chat prompt, placeholder expanded, left-repacked; seeded pixels,
+    no PIL on the card's machine)."""
+    from functools import partial
+
+    from multimodal_sae_tpu_torch.features.patching import (
+        build_fast_attribution, fast_attribution_maps, general_attribution_maps, get_logit_diff,
+    )
+    from multimodal_sae_tpu_torch.models import llava_next
+    from multimodal_sae_tpu_torch.models.llava_next import repack_left_padded
+
+    hook, fb, width, k = "model.layers.24", 8, sae.num_latents, sae.cfg.k
+    n_suffix = 32 - 25
+    cfg = model.cfg
+    rng = np.random.default_rng(21)
+    vocab = cfg.text_config.vocab_size - 1  # the last id is the image placeholder
+    pixels = {hw: _image_rows(cfg, [hw], rng)[0]["pixel_values"] for hw in (UNIFORM_HW, RAGGED_HW)}
+    prompts = [rng.integers(0, 128000, size=8).tolist() for _ in range(2)]
+    answers = rng.integers(0, vocab, size=(2, 2))
+
+    def metric_of(rows):
+        return partial(get_logit_diff, answer_token_indices=torch.tensor(answers[rows], device=dev))
+
+    def probe(rows):
+        """(batch, metric) of probe rows (image size, row index) as
+        `Attribution` builds them: left-repacked, an all-ones mask dropped."""
+        batch = repack_left_padded(_collate_prepared(cfg, [
+            {"prompt_ids": CHAT_HEAD + [cfg.image_token_index] + prompts[r] + CHAT_TAIL, "image_size": hw,
+             "pixel_values": pixels[hw]} for hw, r in rows]))
+        if batch["attention_mask"].all():
+            batch = {key: val for key, val in batch.items() if key != "attention_mask"}
+        return batch, metric_of([r for _, r in rows])
+
+    tower_calls = []
+    real_tower = llava_next.project_image_features
+
+    def counted_tower(params, cfg_, pixel_values):
+        tower_calls.append(pixel_values.shape[0])
+        return real_tower(params, cfg_, pixel_values)
+
+    llava_next.project_image_features = counted_tower
+    seconds = {}
+    try:
+        batch, metric = probe([(UNIFORM_HW, 0)])
+        S = batch["input_ids"].shape[1]
+        if S != 2358:
+            raise AssertionError(f"the probe row has {S} tokens, 2,358 expected")
+        # Outside the counted run: the prefix once to choose the features and
+        # feed K2's checks, one chunk as warm-up, one timed stage by stage.
+        t0 = time.perf_counter()
+        step = build_fast_attribution(model, hook, sae, batch, metric)
+        inside = step.wide_idx[-1, :8].long().tolist()  # the last position's 8 largest
+        in_pool = torch.zeros(width, dtype=torch.bool, device=dev)
+        in_pool[step.wide_idx.long().reshape(-1)] = True
+        outside = sorted(rng.choice(torch.nonzero(~in_pool).squeeze(1).cpu().numpy(), size=8, replace=False).tolist())
+        feats = inside + outside
+        chunk = torch.tensor(inside)
+        step(chunk)  # warm-up
+        torch.cuda.synchronize()
+        seconds["prefix_and_warmup_chunk"] = time.perf_counter() - t0
+        stage_ms = time_stages(step, chunk)
+        # The general path's splices replay the fast path's selections: the
+        # clean top-k, then each feature's re-selected list.
+        general_picks = [step.wide_idx[:, :k].cpu()] + [
+            step.reselect(torch.tensor([f], device=dev))[1].cpu() for f in inside[:2]]
+        torch.cuda.empty_cache()
+
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        tower_calls.clear()
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        out = fast_attribution_maps(model, hook, sae, batch, metric, feats, feature_batch=fb, progress=False)
+        torch.cuda.synchronize()
+        seconds["run"] = time.perf_counter() - t0
+        launches = kernel_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        tower_run = list(tower_calls)
+        n_crops = pixels[UNIFORM_HW].shape[0]
+        if tower_run != [n_crops]:
+            raise AssertionError(f"the tower ran on {tower_run} crops; once on {n_crops} expected")
+        chunks = len(feats) // fb
+        # Prefix: 25 forward attentions, the two block-max levels of the
+        # top-(k+1) pool, the clean decode; per chunk one splice and the
+        # suffix's 7 attentions forward and backward.
+        _expect_launches(launches, {"block_max": 2, "flash_attention": 25 + n_suffix * chunks,
+                                    "flash_attention_bwd_delta": n_suffix * chunks,
+                                    "flash_attention_bwd_dkdv": n_suffix * chunks,
+                                    "flash_attention_bwd_dq": n_suffix * chunks, "gather_rows": 1,
+                                    "splice_decode": chunks}, "image attribution")
+        sal = _saliency(out, hook)  # (16, 1, S)
+        if sal.shape != (len(feats), 1, S):
+            raise AssertionError(f"saliency shape {sal.shape}")
+        if np.any(sal[8:] != 0):
+            raise AssertionError("saliency of a feature outside every top-k is not exactly 0")
+        if not np.any(sal[:8] != 0):
+            raise AssertionError("saliency of the in-top-k features is all 0")
+        k2 = check_gather_rows(sae.params["W_dec"], step.wide_idx[:, :k], step.wide_vals[:, :k],
+                               step.reselect(torch.tensor(inside, device=dev)))
+        splice = check_splice_decode(step, inside, outside, sae.params["W_dec"], sae.params["b_dec"])
+        del step
+        torch.cuda.empty_cache()
+
+        # Check 1: the general path (full spliced forward and backward, the
+        # tower again) for 2 features, on the fast path's selections.
+        t0 = time.perf_counter()
+        with _selections(general_picks, replay=True) as gaps:
+            general = general_attribution_maps(model, {hook: sae}, batch, metric, inside[:2], progress=False)
+        torch.cuda.synchronize()
+        seconds["general_2_features"] = time.perf_counter() - t0
+        gaps = torch.cat(gaps)
+        general_gap = gaps.max().item() if len(gaps) else 0.0
+        if general_gap > GENERAL_NEAR_TIE:
+            raise AssertionError(f"the general path's own top-k lies {general_gap} from the fast path's")
+        agreement = []
+        for f, g in zip(sal[:2], general[hook]):
+            rel = float(np.linalg.norm(f - g) / np.linalg.norm(g))
+            agreement.append(rel)
+            if not rel <= ATTRIBUTION_L2_REL:
+                raise AssertionError(f"fast and general image attribution differ: relative L2 {rel}")
+
+        # Check 2: a ragged batch of two geometries against each row alone.
+        batch2, metric2 = probe([(UNIFORM_HW, 0), (RAGGED_HW, 1)])
+        S2 = batch2["input_ids"].shape[1]
+        lengths = batch2["attention_mask"].sum(1).tolist()
+        step2 = build_fast_attribution(model, hook, sae, batch2, metric2)
+        feats2 = (step2.wide_idx[S2 - 1, :2].long().tolist() + step2.wide_idx[2 * S2 - 1, :2].long().tolist())
+        del step2
+        torch.cuda.empty_cache()
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        tower_calls.clear()
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        out2 = fast_attribution_maps(model, hook, sae, batch2, metric2, feats2, feature_batch=4, progress=False)
+        torch.cuda.synchronize()
+        seconds["ragged_run"] = time.perf_counter() - t0
+        launches2 = kernel_counts()
+        ragged_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if tower_calls != [pixels[hw].shape[0] for hw in (UNIFORM_HW, RAGGED_HW)]:
+            raise AssertionError(f"the tower ran on {tower_calls} crops in the ragged run")
+        _expect_launches(launches2, {"block_max": 2, "flash_attention": 25 + n_suffix,
+                                     "flash_attention_bwd_delta": n_suffix, "flash_attention_bwd_dkdv": n_suffix,
+                                     "flash_attention_bwd_dq": n_suffix, "gather_rows": 1, "splice_decode": 1},
+                         "ragged image attribution")
+        sal2 = _saliency(out2, hook)  # (4, 2, S2)
+        pad = S2 - lengths[0]
+        if np.any(sal2[:, 0, :pad] != 0):
+            raise AssertionError("saliency at the left-padded row's pad positions is not exactly 0")
+        # Each row alone as a batch of one with the pad it has in the batch
+        # (row 0 its 588 leading pads, row 1 none): the same computation at
+        # the same positions, so the same bits (the batch's metric means over
+        # its 2 rows, and the halving is exact).
+        alone = []
+        for r in range(2):
+            one = {key: val[r:r + 1] if key in ("input_ids", "attention_mask") else [val[r]]
+                   for key, val in batch2.items()}
+            if one["attention_mask"].all():
+                one = {key: val for key, val in one.items() if key != "attention_mask"}
+            ref = _saliency(fast_attribution_maps(model, hook, sae, one, metric_of([r]), feats2, feature_batch=4,
+                                                  progress=False), hook)
+            if not np.array_equal(sal2[:, r] * 2, ref[:, 0]):
+                raise AssertionError(f"row {r} of the ragged batch differs from the row alone with its pad")
+            alone.append({"tokens": lengths[r], "left_pad": S2 - lengths[r], "equal_bits": True})
+        # Row 0 without its pads, as `Attribution` builds the probe row alone:
+        # its RoPE positions move by the pad, which changes nothing in exact
+        # arithmetic and leaves bf16 rounding.  Held on this subject within
+        # IMAGE_PAD_SHIFT_*, and in fp32 at 4 layers within
+        # IMAGE_PAD_SHIFT_FP32_REL.
+        single = probe([(UNIFORM_HW, 0)])
+        unpadded = _pad_shift(model, hook, sae, (batch2, metric2), single, pad)
+        if not (unpadded["hidden_max_row_l2_rel"] <= IMAGE_PAD_SHIFT_HIDDEN_REL
+                and unpadded["grad_l2_rel"] <= IMAGE_PAD_SHIFT_GRAD_REL
+                and max(unpadded["saliency_l2_rel_to_largest"]) <= IMAGE_PAD_SHIFT_SALIENCY
+                and unpadded["worst_gap_to_noise"] <= REPLAY_NOISE_FACTOR):
+            raise AssertionError(f"row 0 without its pads differs: {unpadded}")
+        unpadded.update(tokens=lengths[0], hidden_bound=IMAGE_PAD_SHIFT_HIDDEN_REL,
+                        grad_bound=IMAGE_PAD_SHIFT_GRAD_REL, saliency_bound_to_largest=IMAGE_PAD_SHIFT_SALIENCY)
+        reduced = {}
+        for name, dtype, flash in (("fp32_eager", torch.float32, False), ("bf16_flash", torch.bfloat16, True),
+                                   ("bf16_eager", torch.bfloat16, False)):
+            cut = _at_depth(model, 4, dtype, flash)
+            reduced[name] = _pad_shift(cut, "model.layers.2", sae, (batch2, metric2), single, pad)
+            del cut
+            torch.cuda.empty_cache()
+        fp32 = reduced["fp32_eager"]
+        if not (max(fp32["saliency_l2_rel"]) <= IMAGE_PAD_SHIFT_FP32_REL
+                and fp32["grad_l2_rel"] <= IMAGE_PAD_SHIFT_FP32_REL):
+            raise AssertionError(f"fp32 at 4 layers: row 0 without its pads differs: {fp32}")
+        reduced.update(layers=4, hook="model.layers.2", fp32_bound=IMAGE_PAD_SHIFT_FP32_REL)
+    finally:
+        llava_next.project_image_features = real_tower
+
+    emit({
+        "phase": "image_attribution_path",
+        "subject": "llama3-llava-next-8b widths (CLIP-L/336, projector, 32 text layers, LM head), bf16, flash attention",
+        "sae": "model.layers.24, 4096 -> 131072 latents, k=256, fp32, decoder", "image": list(UNIFORM_HW),
+        "prompt_tokens": S, "features": len(feats), "feature_batch": fb, "seconds": seconds,
+        "ms_per_feature": seconds["run"] * 1e3 / len(feats), "features_per_s": len(feats) / seconds["run"],
+        "outside_chunks_ms": seconds["run"] * 1e3 - chunks * stage_ms["total"], "chunk_stage_ms": stage_ms,
+        "tower_calls_crops": tower_run, "peak_gb": peak_gb, "launches": launches, "outside_topk_exact_zero": True,
+        "fast_vs_general_l2_rel": agreement, "l2_rel_bound": ATTRIBUTION_L2_REL,
+        "general_own_topk_would_differ": len(gaps), "general_largest_gap": general_gap,
+        "ragged": {"sizes": [list(UNIFORM_HW), list(RAGGED_HW)], "row_lengths": lengths, "tokens": S2,
+                   "features": feats2, "feature_batch": 4, "launches": launches2, "peak_gb": ragged_peak_gb,
+                   "pad_positions_exact_zero": True, "rows_alone_with_their_pads": alone,
+                   "row0_without_pads": unpadded, "row0_without_pads_at_4_layers": reduced},
+        "k2_decode": k2, "k2_splice": splice, "card": card,
+    })
+    return {"launches": {name: launches[name] + launches2[name] for name in launches}, "k2": k2, "splice": splice,
+            "pads": [pad, 0], "S2": S2, "S": S}
 
 
 def main() -> int:
@@ -3387,13 +3935,23 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     image = phase_image_cache_path(dev, card)
+    image_train = phase_image_train_path(dev, card, image.pop("model"))
     gc.collect()
     torch.cuda.empty_cache()
     image_steering = phase_image_steering_path(dev, card)
+    image_attribution = phase_image_attribution_path(dev, card, image_steering.pop("model"), image_steering.pop("sae"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    # K3 at the image attribution suffix's shapes: a chunk of 8 features on
+    # the probe row, and 4 features on the ragged two-row batch (row 0 of
+    # each pair left-padded).
+    k3_image_attribution = [check_flash_chain(dev, 8, image_attribution["S"], seed=12),
+                            check_flash_chain(dev, 8, image_attribution["S2"], image_attribution["pads"], seed=13)]
+    emit({"phase": "flash_attention_image_attribution", "shapes": k3_image_attribution})
     clip = phase_clip_path(dev, card)
     runs = (cache["launches"], loader_launches, explained["launches"], attribution["launches"],
             general["launches"], stats["launches"], steering["launches"], train["launches"], image["launches"],
-            image_steering["launches"], clip["launches"])
+            image_train["launches"], image_steering["launches"], image_attribution["launches"], clip["launches"])
     total = {name: sum(run[name] for run in runs) for name in runs[0]}
     k2, splice, dvals = attribution["k2"], attribution["splice"], train["dvals"]
     bwd_launches = {part: total[f"flash_attention_bwd_{part}"] for part in ("delta", "dkdv", "dq")}
@@ -3404,7 +3962,8 @@ def main() -> int:
          "launches": total["block_max"], "max_abs_err": k1["max_abs_err"],
          "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
          "bound_by": "bytes", "library_ms": k1["library_ms"], "image_step": k1["image_step"],
-         "prompt_step": k1["prompt_step"], "clamp_chunk": steering["clamp_chunk"]["block_max"]},
+         "prompt_step": k1["prompt_step"], "clamp_chunk": steering["clamp_chunk"]["block_max"],
+         "image_train_steps": k1["image_train_steps"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "multimodal_sae_tpu_torch/csrc/flash_attention.cu",
          "replaces": "multimodal_sae_tpu/models/llama.py:341",
@@ -3412,7 +3971,9 @@ def main() -> int:
          "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": k3["library_ms"], "image_shapes": k3["image_shapes"],
          "right_pad_edges_max_abs_err": k3["right_pad_edges_max_abs_err"],
-         "prefill_shapes": [steering["k3_prefill"], image_steering["k3_prefill"]]},
+         "prefill_shapes": [steering["k3_prefill"], image_steering["k3_prefill"]],
+         "image_attribution_with_lse": [{"shape": c["shape"], "left_pads": c["left_pads"], **c["forward_with_lse"]}
+                                        for c in k3_image_attribution]},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "multimodal_sae_tpu_torch/csrc/flash_attention_bwd.cu",
          "replaces": "multimodal_sae_tpu/models/llama.py:341 (jax flash_attention.py:1121 dkv, :1456 dq)",
@@ -3421,20 +3982,24 @@ def main() -> int:
          "ms": k3_bwd["ms"], "plain_ms": k3_bwd["plain_ms"], "bound_ms": k3_bwd["bound_ms"],
          "bound_by": k3_bwd["bound_by"], "library_ms": k3_bwd["library_ms"],
          "one_prompt": {key: general["k3_bwd_b1"][key] for key in ("shape", "max_abs_err", "ms", "plain_ms",
-                                                                 "bound_ms", "bound_by", "library_ms")}},
+                                                                 "bound_ms", "bound_by", "library_ms")},
+         "image_attribution": [{key: c[key] for key in ("shape", "left_pads", "max_abs_err", "ms", "plain_ms",
+                                                        "bound_ms", "bound_by", "library_ms")}
+                               for c in k3_image_attribution]},
         {"name": "gather_rows", "route": "cuda",
          "source": "multimodal_sae_tpu_torch/csrc/gather_rows.cu",
          "replaces": "multimodal_sae_tpu/ops/pallas_gather.py:50",
          "launches": total["gather_rows"], "max_abs_err": k2["max_abs_err"],
          "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": k2["bound_by"], "library_ms": k2["library_ms"],
-         "clamp_chunk": steering["clamp_chunk"]["gather_decode"]},
+         "clamp_chunk": steering["clamp_chunk"]["gather_decode"], "image_prompt": image_attribution["k2"]},
         {"name": "splice_decode", "route": "cuda",
          "source": "multimodal_sae_tpu_torch/csrc/gather_rows.cu",
          "replaces": "multimodal_sae_tpu/ops/pallas_gather.py:50",
          "launches": total["splice_decode"], "max_abs_err": splice["max_abs_err"],
          "ms": splice["ms"], "plain_ms": splice["plain_ms"], "bound_ms": splice["bound_ms"],
-         "bound_by": splice["bound_by"], "library_ms": splice["library_ms"]},
+         "bound_by": splice["bound_by"], "library_ms": splice["library_ms"],
+         "image_prompt": image_attribution["splice"]},
         {"name": "decode_dvals", "route": "cuda",
          "source": "multimodal_sae_tpu_torch/csrc/gather_rows.cu",
          "replaces": "multimodal_sae_tpu/ops/sparse_decode.py:132",

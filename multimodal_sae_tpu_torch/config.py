@@ -1,12 +1,14 @@
-"""Configuration dataclasses of the port's cache and training paths.
+"""Configuration dataclasses of the port's cache, training and attribution
+paths.
 
 Field-for-field copies of `multimodal_sae_tpu.config.SaeConfig`,
-`TrainConfig`, `RunConfig`, `ExperimentConfig`, `FeatureConfig` and
-`CacheConfig` (same names, defaults and order), so `cfg.json` and
-`config.json` files and CLI flags are interchangeable between the two
-packages.  Options whose paths a later slice
-ports (int8, tensor and data parallelism, module distribution, multimodal
-data) are accepted here and refused by the entry points that would need them.
+`TrainConfig`, `RunConfig`, `ExperimentConfig`, `FeatureConfig`,
+`CacheConfig` and `AttributionConfig` (same names, defaults and order), so
+`cfg.json` and `config.json` files and CLI flags are interchangeable
+between the two packages.  Options whose paths a later slice ports (int8,
+tensor and data parallelism, module distribution) and the one the port
+leaves out (rematerialisation) are accepted here and refused by the entry
+points that would need them.
 """
 
 from __future__ import annotations
@@ -315,3 +317,57 @@ class CacheConfig:
 
     dp: int = 0
     """In-process data parallelism (not in this slice of the port)."""
+
+
+@dataclass
+class AttributionConfig:
+    """Attribution-patching CLI configuration (reference
+    sae_auto_interp/config.py:120-139)."""
+
+    model: str = field(default="EleutherAI/pythia-160m", metadata={"positional": True})
+    """Name of the subject model."""
+
+    data_path: str = "./data/digit.json"
+    """Path to the probing dataset, a json list of
+    {"prompt", "answer", "baseline", "image"} dicts."""
+
+    sae_path: Optional[str] = None
+    """Path to the trained sae."""
+
+    selected_sae: str = "layers.24"
+    """Name of the selected sae hookpoint."""
+
+    save_dir: str = "./attribution_cache"
+    """Save dir for attribution results."""
+
+    int8_matmul: bool = False
+    """W8A8 subject matmuls (not in this slice of the port; refused)."""
+
+    int8_vision: bool = False
+    """W8A8 CLIP tower (not in this slice of the port; refused)."""
+
+    flash_attention: bool = False
+    """Run the subject's attention forward and backward through the flash
+    kernels (ops/flash_attention.py) instead of eager attention."""
+
+    remat: bool = False
+    """Rematerialise decoder layers in the backward (not ported; refused:
+    the suffix backward keeps its activations, which fit one card)."""
+
+    load_in_8bit: bool = False
+    """Load the model in reduced precision (not in this slice of the port;
+    refused)."""
+
+    tp: int = 0
+    """Tensor-parallel degree (not in this slice of the port; refused above
+    1)."""
+
+    dp: int = 0
+    """Data parallelism over features (not in this slice of the port;
+    refused above 1)."""
+
+    feature_batch: int = 0
+    """Features attributed per chunk, stacked on the batch axis.  0 = auto:
+    32 for short prompts (S < 512), 1 for long ones.  Explicit values are
+    honoured, with an automatic halve-and-retry when the card runs out of
+    memory."""

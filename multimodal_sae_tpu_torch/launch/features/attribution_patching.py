@@ -1,0 +1,80 @@
+"""Attribution-patching CLI:
+
+    python -m multimodal_sae_tpu_torch.launch.features.attribution_patching <model> \\
+        --data_path <probe.json> --sae_path <dir> --selected_sae model.layers.24 \\
+        [--flash_attention] [--feature_batch N] [--save_dir DIR]
+
+The flags of `python -m multimodal_sae_tpu.launch.features.attribution_patching`
+(reference launch/features/attribution_patching.py:15-80): the
+grad x activation saliency of every feature of the selected SAE over the
+probe rows, written as one `{model}_{selected_sae with . as _}.safetensors`
+file under `--save_dir` whose key `{selected_sae}` holds the
+(num_features * B, S) float32 maps, the layout
+`tools/create_filters_from_attribution.py` reads.  The subject (a local
+checkpoint directory, in bf16) and the SAE run on the CUDA card in one
+process; one SAE on a subject with `forward_from_layer` (LLaMA or
+LLaVA-NeXT) takes the prefix/suffix path.  int8, --tp, --dp and --remat
+are refused (ROADMAP.md §1)."""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from ...config import AttributionConfig
+from ...device import DeviceLike, setup
+from ...features.patching import Attribution
+from ...logger import logger
+from ...utils.cli import parse_dataclass
+from ...utils.safetensors_io import save_file
+from ..utils import load_subject_model, refuse_unported, shard_info, validate_hookpoints
+
+
+def main(cfg: AttributionConfig, device: DeviceLike = None):
+    refuse_unported(cfg)
+    device = setup(device)
+    rank, world = shard_info()
+
+    logger.info(f"Using model {cfg.model}")
+    logger.info(f"Using sae {cfg.sae_path}")
+    logger.info(f"Selecting sae layer {cfg.selected_sae}")
+
+    model, _processor, tokenizer = load_subject_model(
+        cfg.model, dtype=torch.bfloat16, flash_attention=cfg.flash_attention, device=device
+    )
+    attribution = Attribution(
+        model,
+        tokenizer,
+        sae_path=cfg.sae_path,
+        data_path=cfg.data_path,
+        selected_sae=cfg.selected_sae,
+        feature_batch=cfg.feature_batch,
+        device=device,
+    )
+    # A hookpoint the subject does not expose fails here, not inside the
+    # capture or the suffix.
+    validate_hookpoints(model, list(attribution.sae_dict))
+
+    saes = list(attribution.sae_dict.values())
+    k = saes[0].cfg.num_latents_for(saes[0].d_in)
+    indices = np.array_split(np.arange(k), world)[rank]
+
+    attribution_dict = attribution.get_attribution(indices)
+
+    logger.info("Save results")
+    # One process holds every feature (`shard_info()` is (0, 1) until
+    # multi-process runs are ported), so its maps are the merged file.
+    merged = {key: np.concatenate(v, axis=0) for key, v in attribution_dict.items()}
+    os.makedirs(cfg.save_dir, exist_ok=True)
+    output_file = os.path.join(
+        cfg.save_dir, f"{cfg.model.split('/')[-1]}_{cfg.selected_sae.replace('.', '_')}.safetensors"
+    )
+    logger.info(output_file)
+    save_file(merged, output_file)
+    return output_file
+
+
+if __name__ == "__main__":
+    main(parse_dataclass(AttributionConfig))

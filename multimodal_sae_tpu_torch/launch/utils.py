@@ -24,6 +24,7 @@ _UNPORTED = {
     "sae_int8": "§1, int8 quantisation",
     "tp": "§1, multi-process and tensor parallelism",
     "dp": "§1, multi-process and tensor parallelism",
+    "remat": "§1, steering and generation (remat is left out: the backward keeps its activations)",
 }
 
 

@@ -11,7 +11,10 @@ the packed features over the placeholder positions.  The JAX package's
 XLA mechanisms are left out (its LRU cache of compiled programs, the
 forward's 128-token bucket padding, `batch_sharding`); the outputs are the
 same.  `generate` repacks the prepared right-padded batch to left padding
-and runs `llama.greedy_generate` on the multimodal embeddings.
+and runs `llama.greedy_generate` on the multimodal embeddings;
+`forward_from_layer` resumes the language model above a hookpoint (the
+suffix of fast attribution: the tower, projector and packing all run below
+any language hookpoint, so the suffix is text layers only).
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, resolve_device, set_precision
 from .clip_vit import (
     OPENAI_CLIP_MEAN,
     OPENAI_CLIP_STD,
@@ -39,10 +42,13 @@ from .llama import (
     InterventionFn,
     LlamaConfig,
     batch_mask,
+    forward_from_layer_above,
     greedy_generate,
+    hookpoint_layer_idx,
     init_llama_params,
     llama_forward,
     pad_text_rows,
+    suffix_params_above,
 )
 
 DEFAULT_PINPOINTS = [[336, 672], [672, 336], [672, 672], [1008, 336], [336, 1008]]
@@ -442,6 +448,30 @@ class LlavaNextModel:
     def capture(self, batch: dict, hookpoints: List[str]) -> Dict[str, torch.Tensor]:
         batch = self._maybe_prepare(batch)
         return self.forward(batch, capture=hookpoints, return_logits=False)["captured"]
+
+    def suffix_params(self, hookpoint: str) -> dict:
+        """The language model's weights above `hookpoint`, final norm and LM
+        head (see `llama.suffix_params_above`: the tensors themselves)."""
+        return suffix_params_above(self.params["language_model"], hookpoint_layer_idx(self._strip(hookpoint)))
+
+    def forward_from_layer(
+        self,
+        hidden: torch.Tensor,
+        hookpoint: str,
+        batch: dict,
+        last_logit_only: bool = True,
+    ) -> torch.Tensor:
+        """Resume the language model from `hookpoint`'s (possibly spliced)
+        output `hidden`, (B, S, D) on the model's device; only the text
+        layers above it run, under the batch's attention mask.  With
+        `last_logit_only`, the logits of each row's last attended position,
+        (B, 1, V)."""
+        set_precision()
+        return forward_from_layer_above(
+            self.params["language_model"], self.cfg.text_config, hidden,
+            hookpoint_layer_idx(self._strip(hookpoint)), attention_mask=batch_mask(batch, self.device),
+            last_logit_only=last_logit_only,
+        )
 
     def _maybe_prepare(self, batch: dict) -> dict:
         """Prepare a raw batch ({"input_ids" with unexpanded placeholders,

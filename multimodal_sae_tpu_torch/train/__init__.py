@@ -1,4 +1,5 @@
-from .data import MemmapDataset, chunk_and_tokenize
+from .collator import DataCollatorForImage
+from .data import MemmapDataset, chunk_and_tokenize, process_mm_data
 from .trainer import SaeTrainer
 
-__all__ = ["MemmapDataset", "SaeTrainer", "chunk_and_tokenize"]
+__all__ = ["DataCollatorForImage", "MemmapDataset", "SaeTrainer", "chunk_and_tokenize", "process_mm_data"]

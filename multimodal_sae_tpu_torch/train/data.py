@@ -1,5 +1,5 @@
-"""Training and caching datasets (copies of `chunk_and_tokenize` and
-`MemmapDataset` from multimodal_sae_tpu/train/data.py).  Host-side;
+"""Training and caching datasets (copies of `chunk_and_tokenize`,
+`process_mm_data` and `MemmapDataset` from multimodal_sae_tpu/train/data.py).  Host-side;
 `datasets` and `transformers` objects come in from the caller."""
 
 from __future__ import annotations
@@ -75,6 +75,35 @@ def chunk_and_tokenize(
         load_from_cache_file=load_from_cache_file,
     )
     return data.with_format(format, columns=["input_ids"])
+
+
+def process_mm_data(data, tokenizer):
+    """LLaVA "conversations" (from/value turns) -> chat-template
+    `input_ids`, keeping the `image` column (reference
+    train/sae/sae/data.py:103-142).  "human" turns become "user", "gpt"
+    turns "assistant", any other speaker "system"; other keys of a turn pass
+    through.  The dataset comes back unformatted: the caller formats the
+    ids (numpy formatting would turn the images into arrays)."""
+    roles = {"human": "user", "gpt": "assistant"}
+
+    def _remap_turn(turn: dict) -> dict:
+        out = {}
+        for key, content in turn.items():
+            if key == "from":
+                out["role"] = roles.get(content, "system")
+            elif key == "value":
+                out["content"] = content
+            else:
+                out[key] = content
+        return out
+
+    def _tokenize_fn(x: dict):
+        new_conv = [_remap_turn(t) for t in x["conversations"]]
+        input_ids = tokenizer.apply_chat_template(new_conv, return_tensors="np", add_generation_prompt=False)
+        return {"input_ids": input_ids}
+
+    remove_columns = [c for c in get_columns_all_equal(data) if c not in ("image", "input_ids")]
+    return data.map(_tokenize_fn, remove_columns=remove_columns)
 
 
 def get_columns_all_equal(dataset) -> list:

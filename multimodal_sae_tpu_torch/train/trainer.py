@@ -142,17 +142,19 @@ class SaeTrainer:
         model: an ActivationSource (models/api.py) on `device`.
         device: the card (CUDA) unless the caller names another; the
             trainer raises without one.
+        collator: turns a list of `batch_size` rows into a batch (e.g.
+            `DataCollatorForImage` for multimodal rows, whose images the
+            LLaVA subject's `capture` prepares); None stacks the rows.
     """
 
-    def __init__(self, cfg: TrainConfig, dataset, model, device: DeviceLike = None):
+    def __init__(self, cfg: TrainConfig, dataset, model, device: DeviceLike = None, collator=None):
         if cfg.distribute_modules:
             raise NotImplementedError(
                 "--distribute_modules is not ported yet: ROADMAP.md §1, multi-process and tensor parallelism"
             )
-        if cfg.mm_data:
-            raise NotImplementedError("--mm_data is not ported yet: ROADMAP.md §1, LLaVA-NeXT, CLIP and the image cache")
         self.device = setup(device)
         self.model = model
+        self.collator = collator
         all_names = model.hookpoint_names()
 
         if cfg.hookpoints:
@@ -264,7 +266,7 @@ class SaeTrainer:
 
     def _fit_loop(self, ds, avg_metrics, wandb, log_fn, pbar):
         cfg = self.cfg
-        for batch in _iter_batches(ds, cfg.batch_size):
+        for batch in _iter_batches(ds, cfg.batch_size, collator=self.collator):
             self.step(batch, avg_metrics)
 
             step, substep = divmod(self.global_step, cfg.grad_acc_steps)
@@ -299,7 +301,11 @@ class SaeTrainer:
     def step(self, batch: dict, avg_metrics=None, mark: Mark = None):
         """One batch: capture the hidden states, accumulate every SAE's
         gradient, and at a grad-acc boundary apply the updates and refresh
-        the dead-feature counters (reference trainer.py:275-414).
+        the dead-feature counters (reference trainer.py:275-414).  The
+        tokens counted toward the dead-feature threshold are the batch's
+        `input_ids` positions, pads included (an un-expanded `<image>`
+        placeholder counts once); every captured row trains, pad rows of a
+        ragged multimodal batch included, as in the JAX trainer.
         `mark(stage)`, when given, is called after "capture", the stages of
         `accumulate`, and at a boundary "apply" and "bookkeeping"."""
         cfg = self.cfg
@@ -445,10 +451,11 @@ def _safe(name: str) -> str:
     return name.replace("/", "_").replace(".", "_")
 
 
-def _iter_batches(dataset, batch_size: int) -> Iterable[dict]:
+def _iter_batches(dataset, batch_size: int, collator=None) -> Iterable[dict]:
     """Sequential fixed-size batches, the last ragged one dropped (the
-    dataset is shuffled upstream, reference trainer.py:235-241), collated
-    by the cache pipeline's `_batched`."""
+    dataset is shuffled upstream, reference trainer.py:235-241): the rows
+    in order through `collator`, or without one collated by the cache
+    pipeline's `_batched`."""
     from ..features.cache import _batched
 
     if not hasattr(dataset, "__getitem__"):
@@ -456,4 +463,8 @@ def _iter_batches(dataset, batch_size: int) -> Iterable[dict]:
             f"SaeTrainer needs an indexable row dataset (got {type(dataset).__name__}); materialize the "
             "iterable first"
         )
-    yield from _batched(dataset, batch_size)
+    if collator is None:
+        yield from _batched(dataset, batch_size)
+        return
+    for i in range(len(dataset) // batch_size):
+        yield collator([dataset[j] for j in range(i * batch_size, (i + 1) * batch_size)])

@@ -19,7 +19,6 @@ against the JAX package's, on the tiny LLaVA-NeXT of tests/torch_llava_tiny.py.
 
 import functools
 import hashlib
-import json
 import os
 
 import numpy as np
@@ -40,7 +39,7 @@ from multimodal_sae_tpu_torch.features import FeatureImageCache
 from multimodal_sae_tpu_torch.sae import Sae
 from multimodal_sae_tpu_torch.utils.safetensors_io import load_file
 
-from torch_llava_tiny import BOS, IMG_TOKEN, PINPOINTS, hf_config, images, models, numpy_state_dict
+from torch_llava_tiny import BOS, IMG_TOKEN, images, models, write_checkpoint
 
 HOOK = "model.layers.1"
 RTOL = 1e-5
@@ -196,32 +195,9 @@ def test_feature_image_cache_run_matches_jax(pair, jax_sae, tmp_path):
 
 @pytest.fixture(scope="module")
 def llava_dir(tmp_path_factory):
-    """A tiny LLaVA-NeXT checkpoint (safetensors + config.json), a word-level
-    tokenizer with `<image>` and a BOS template, and a LlavaNextProcessor,
-    all loadable offline."""
-    import transformers
-    from safetensors.torch import save_file
-    from tokenizers import Tokenizer, models as tok_models, pre_tokenizers, processors
-    from transformers import PreTrainedTokenizerFast
-
-    d = tmp_path_factory.mktemp("torch_llava_ckpt")
-    hf_cfg = hf_config()
-    (d / "config.json").write_text(json.dumps(hf_cfg.to_dict()))
-    save_file(numpy_state_dict(hf_cfg, seed=5), str(d / "model.safetensors"))
-    tok = Tokenizer(tok_models.WordLevel({str(i): i for i in range(256)}, unk_token="0"))
-    tok.pre_tokenizer = pre_tokenizers.Whitespace()
-    tok.add_special_tokens(["<image>", "<s>"])
-    tok.post_processor = processors.TemplateProcessing(single="<s> $A", special_tokens=[("<s>", BOS)])
-    fast = PreTrainedTokenizerFast(tokenizer_object=tok, unk_token="0", bos_token="<s>")
-    assert fast("<image>", add_special_tokens=True)["input_ids"] == PROMPT
-    fast.save_pretrained(d)
-    transformers.LlavaNextProcessor(
-        image_processor=transformers.LlavaNextImageProcessor(
-            size={"shortest_edge": 32}, crop_size={"height": 32, "width": 32}, image_grid_pinpoints=PINPOINTS),
-        tokenizer=fast, patch_size=16, vision_feature_select_strategy="default", image_token="<image>",
-        num_additional_image_tokens=1,
-    ).save_pretrained(d)
-    return str(d)
+    """A tiny LLaVA-NeXT checkpoint with its tokenizer and processor
+    (`torch_llava_tiny.write_checkpoint`), all loadable offline."""
+    return write_checkpoint(tmp_path_factory.mktemp("torch_llava_ckpt"), seed=5)
 
 
 def test_cache_image_clis_match(llava_dir, jax_sae, tmp_path, monkeypatch):

@@ -96,6 +96,13 @@ TRAIN_MODULES = (
     "multimodal_sae_tpu_torch.train.data",
     "multimodal_sae_tpu_torch.train.trainer",
 )
+MM_MODULES = (
+    "multimodal_sae_tpu_torch.config",
+    "multimodal_sae_tpu_torch.launch.features.attribution_patching",
+    "multimodal_sae_tpu_torch.train",
+    "multimodal_sae_tpu_torch.train.collator",
+    "multimodal_sae_tpu_torch.train.data",
+)
 
 
 def _imports(path: Path):
@@ -120,7 +127,7 @@ def test_importing_every_module_leaves_jax_unloaded():
         "import multimodal_sae_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        f"assert set({ATTRIBUTION_MODULES + IMAGE_MODULES + LOADER_MODULES + TRAIN_MODULES + EXPLAIN_MODULES + GENERATE_MODULES!r})"
+        f"assert set({ATTRIBUTION_MODULES + IMAGE_MODULES + LOADER_MODULES + TRAIN_MODULES + EXPLAIN_MODULES + GENERATE_MODULES + MM_MODULES!r})"
         " <= set(names)\n"
         "import chip_smoke\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
@@ -168,7 +175,7 @@ def test_explain_score_attribution_and_clip_modules_import_with_host_libraries_b
     code = (
         "import importlib, sys\n"
         f"for name in {BLOCKED!r}: sys.modules[name] = None\n"
-        f"for n in {EXPLAIN_MODULES + ATTRIBUTION_MODULES + GENERATE_MODULES!r}: importlib.import_module(n)\n"
+        f"for n in {EXPLAIN_MODULES + ATTRIBUTION_MODULES + GENERATE_MODULES + MM_MODULES!r}: importlib.import_module(n)\n"
         "import torch\n"
         "from multimodal_sae_tpu_torch.models import clip_full\n"
         "from multimodal_sae_tpu_torch.models.clip_vit import ClipVisionConfig\n"
@@ -193,7 +200,7 @@ def no_cuda(monkeypatch):
 
 def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
     from multimodal_sae_tpu_torch.__main__ import run
-    from multimodal_sae_tpu_torch.config import CacheConfig, SaeConfig, TrainConfig
+    from multimodal_sae_tpu_torch.config import AttributionConfig, CacheConfig, SaeConfig, TrainConfig
     from multimodal_sae_tpu_torch.features.patching import Attribution
     from multimodal_sae_tpu_torch.features import stats
     from multimodal_sae_tpu_torch.features.dim_reduce import PcaReducer
@@ -201,6 +208,7 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
     from multimodal_sae_tpu_torch.interp_utils import load_saes, load_single_sae
     from multimodal_sae_tpu_torch.launch.cache import cache as cli
     from multimodal_sae_tpu_torch.launch.cache import cache_image as image_cli
+    from multimodal_sae_tpu_torch.launch.features import attribution_patching as attribution_cli
     from multimodal_sae_tpu_torch.launch.features import steering as steering_cli
     from multimodal_sae_tpu_torch.launch.utils import load_subject_model
     from multimodal_sae_tpu_torch.models import LlamaConfig, LlamaModel, LlavaNextConfig, LlavaNextModel, SyntheticActivationSource
@@ -209,7 +217,7 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
     from multimodal_sae_tpu_torch.models.llama import KVCache
     from multimodal_sae_tpu_torch.models.llava_next import load_llava_next
     from multimodal_sae_tpu_torch.sae import Sae
-    from multimodal_sae_tpu_torch.train import SaeTrainer
+    from multimodal_sae_tpu_torch.train import DataCollatorForImage, SaeTrainer
 
     tiny = LlamaConfig(vocab_size=8, hidden_size=8, intermediate_size=8, num_hidden_layers=1,
                        num_attention_heads=2, num_key_value_heads=1)
@@ -229,6 +237,10 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
         lambda: Attribution(None, None, str(tmp_path), str(tmp_path / "probe.json"), selected_sae="layers.0"),
         lambda: SaeTrainer(TrainConfig(hookpoints=["layers.0"]), [], SyntheticActivationSource(d_model=4, device="cpu")),
         lambda: run(["synthetic://4,1,8", str(tmp_path / "tokens.bin")]),
+        lambda: run([str(tmp_path / "llava"), str(tmp_path / "mm_ds"), "--mm_data"]),
+        lambda: SaeTrainer(TrainConfig(hookpoints=["layers.0"], mm_data=True), [],
+                           SyntheticActivationSource(d_model=4, device="cpu"), collator=DataCollatorForImage(None)),
+        lambda: attribution_cli.main(AttributionConfig(model=str(tmp_path / "llava"), sae_path=str(tmp_path))),
         lambda: load_single_sae(str(tmp_path), "layers.0"),
         lambda: PcaReducer(),
         lambda: stats.cos(torch.eye(4)),

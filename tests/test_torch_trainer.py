@@ -256,7 +256,7 @@ def test_cli_help_says_the_threshold_is_exact(capsys):
 
 
 @pytest.mark.parametrize("flag", [["--tp", "2"], ["--dp", "2"], ["--load_in_8bit"], ["--int8_matmul"],
-                                  ["--int8_vision"], ["--mm_data"], ["--distribute_modules"]],
+                                  ["--int8_vision"], ["--distribute_modules"]],
                          ids=lambda f: f[0].lstrip("-"))
 def test_cli_refuses_unported_flags(tmp_path, flag):
     from multimodal_sae_tpu_torch.__main__ import run

@@ -1,8 +1,10 @@
 """A tiny LLaVA-NeXT for the port's tests (test_torch_clip.py,
-test_torch_llava_next.py, test_torch_image_cache.py): an HF-layout state
-dict drawn with numpy from a seed, read by the JAX package's loader, and
-carried to the port by `convert.llava_params_from_jax`.  Image 32 with patch
-16 (two tokens a side, four a tile), pinpoints of one and two tiles."""
+test_torch_llava_next.py, test_torch_image_cache.py and the attribution,
+suffix and multimodal-training tests): an HF-layout state dict drawn with
+numpy from a seed, read by the JAX package's loader, and carried to the
+port by `convert.llava_params_from_jax`; `write_checkpoint` puts it on disk
+with a tokenizer and a processor.  Image 32 with patch 16 (two tokens a
+side, four a tile), pinpoints of one and two tiles."""
 
 import numpy as np
 import torch
@@ -82,3 +84,41 @@ def images(sizes, seed: int = 0):
 
     rng = np.random.default_rng(seed)
     return [Image.fromarray(rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8)) for h, w in sizes]
+
+
+EOS = 258
+CHAT_TEMPLATE = "{% for m in messages %}<s> {{ m['content'] }} </s> {% endfor %}"
+"""Each turn's content between a BOS and an EOS (the word-level tokenizer
+maps words outside "0".."255" to 0)."""
+
+
+def write_checkpoint(d, seed: int = 5) -> str:
+    """A tiny LLaVA-NeXT checkpoint in `d` (safetensors + config.json), a
+    word-level tokenizer over "0".."255" with `<image>`, a BOS template, an
+    EOS and no pad token (as Llama-3's), a chat template, and a
+    LlavaNextProcessor, all loadable offline."""
+    import json
+
+    from safetensors.torch import save_file
+    from tokenizers import Tokenizer, models as tok_models, pre_tokenizers, processors
+    from transformers import PreTrainedTokenizerFast
+
+    hf_cfg = hf_config()
+    (d / "config.json").write_text(json.dumps(hf_cfg.to_dict()))
+    save_file(numpy_state_dict(hf_cfg, seed=seed), str(d / "model.safetensors"))
+    tok = Tokenizer(tok_models.WordLevel({str(i): i for i in range(256)}, unk_token="0"))
+    tok.pre_tokenizer = pre_tokenizers.Whitespace()
+    tok.add_special_tokens(["<image>", "<s>", "</s>"])
+    tok.post_processor = processors.TemplateProcessing(single="<s> $A", special_tokens=[("<s>", BOS)])
+    fast = PreTrainedTokenizerFast(tokenizer_object=tok, unk_token="0", bos_token="<s>", eos_token="</s>")
+    assert fast.eos_token_id == EOS and fast.pad_token_id is None
+    fast.chat_template = CHAT_TEMPLATE
+    assert fast("<image>", add_special_tokens=True)["input_ids"] == [BOS, IMG_TOKEN]
+    fast.save_pretrained(d)
+    transformers.LlavaNextProcessor(
+        image_processor=transformers.LlavaNextImageProcessor(
+            size={"shortest_edge": 32}, crop_size={"height": 32, "width": 32}, image_grid_pinpoints=PINPOINTS),
+        tokenizer=fast, patch_size=16, vision_feature_select_strategy="default", image_token="<image>",
+        num_additional_image_tokens=1,
+    ).save_pretrained(d)
+    return str(d)
