@@ -57,7 +57,10 @@ Phases; any failure raises and ends the run with a non-zero exit code:
    on the subject's clean top-k (2,432 tokens x 256 rows of a
    131,072 x 4,096 fp32 decoder): copy mode bit-exact against
    `W[idx]` and timed beside it, decode mode within a stated fp32 bound of
-   its plain version, timed beside its bound and `embedding_bag`;
+   its plain version, deterministic, its tile pre-pass equal to the plain
+   one, timed beside its bound and `embedding_bag`, here and on a seeded
+   uniform index set of the same shape, with the rows a tile of 8, 16, 32
+   or 64 tokens names (printed for every index set K2 is checked on);
    then its splice mode (`splice_decode`, the attribution chunk's decode)
    equal bit for bit to the parent path (`gather_decode` of `reselect`'s
    lists + b_dec, cast to the splice's dtype) and within a stated bound of
@@ -84,7 +87,8 @@ Phases; any failure raises and ends the run with a non-zero exit code:
    hooks), the launch counts per feature asserted, the stage split (clean
    forward once; corrupted forward, backward, saliency products per
    feature, CUDA events), ms per feature, features/s and peak memory; K2's
-   dvals mode at the upper splice's indices (2,432 x 256) and the K3
+   dvals mode at the upper splice's indices (2,432 x 256) and on a uniform
+   set of that shape, and the K3
    backward at one prompt (1, 32, 8, 2,432, 128) against their plain
    versions, dvals' share of a feature; and the call at reduced depth (4
    layers, 256 tokens, full widths, fp32, eager attention) on the card
@@ -962,12 +966,93 @@ def k2_decode_bound(N: int, k: int, d: int, distinct: int) -> dict:
             "bound_by": "bytes" if bytes_ms >= fma_ms else "operations"}
 
 
-def check_gather_rows(W: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor, chunk) -> dict:
+TILE_SIZES = (8, 16, 32, 64)
+
+
+def tile_stats(idx: torch.Tensor) -> dict:
+    """The rows each tile of T consecutive tokens names (|U|, the rows K2's
+    decode mode would stage to read each once), at T = 8, 16, 32 and 64:
+    mean and largest over the tiles, and the pairs a row serves."""
+    from multimodal_sae_tpu_torch.ops import gather_rows as gr
+
+    out = {}
+    for T in TILE_SIZES:
+        U = gr.tile_union_sizes(idx, T).float()
+        out[str(T)] = {"mean": U.mean().item(), "max": U.max().item(), "pairs_per_row": T * idx.shape[1] / U.mean().item()}
+    return out
+
+
+def check_tile_union(idx: torch.Tensor, L: int, tile: int, cap: int) -> dict:
+    """The decode mode's pre-pass on the card against its plain version at
+    the decode's tiling: codes and tile info equal, and each tile's staged
+    rows; with how many tiles take the staged path and the share of pairs
+    their staged rows cover."""
+    from multimodal_sae_tpu_torch.ops import gather_rows as gr
+
+    code, rows, info = gr.tile_union(idx, L, tile, cap)
+    p_code, p_rows, p_info = gr.tile_union_plain(idx, L, tile, cap)
+    torch.cuda.synchronize()
+    staged = torch.arange(p_rows.shape[1], device=idx.device)[None] < p_info[:, :1]
+    if not (torch.equal(code, p_code) and torch.equal(info, p_info) and torch.equal(rows[staged], p_rows[staged])):
+        raise AssertionError(f"the tile pre-pass differs from its plain version (tiles of {tile}, {cap} rows)")
+    return {"tile": tile, "rows": cap, "tiles": info.shape[0], "staged_tiles": int(info[:, 1].sum()),
+            "pairs_on_staged_rows": info[:, 3].sum().item() / idx.numel(), "equal_plain": True}
+
+
+def _uniform_set(W: torch.Tensor, N: int = 2432, k: int = 256):
+    """A seeded uniform index set (N, k) over W's rows, with descending
+    values: tiles share almost no rows."""
+    gen = torch.Generator(device=W.device).manual_seed(5)
+    idx = torch.randint(0, W.shape[0], (N, k), generator=gen, device=W.device, dtype=torch.int32)
+    return idx, torch.rand(N, k, generator=gen, device=W.device).sort(dim=1, descending=True).values.to(W.dtype)
+
+
+def _check_decode(W: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> dict:
+    """K2's decode mode at (tokens, k) = idx's shape: within an fp32 bound of
+    its plain version, equal bits over two calls, its pre-pass equal to the
+    plain one; timed beside the plain version, `embedding_bag` and the
+    bound, with the rows a tile names."""
+    import torch.nn.functional as F
+
+    from multimodal_sae_tpu_torch.ops import gather_rows as gr
+
+    N, k = idx.shape
+    d = W.shape[1]
+    got, ref = gr.gather_decode(idx, vals, W), gr.gather_decode_plain(idx, vals, W)
+    again = gr.gather_decode(idx, vals, W)
+    torch.cuda.synchronize()
+    # Both sum k fp32 products in their own order: each differs from the
+    # exact sum by at most k * 2^-24 * sum_j |vals_j| * max |W|.
+    err_bound = 2 * k * 2.0 ** -24 * vals.abs().sum(-1).max().item() * W.abs().max().item()
+    err = (got - ref).abs().max().item()
+    if not (torch.isfinite(got).all() and err <= err_bound):
+        raise AssertionError(f"gather_decode off by {err} (bound {err_bound})")
+    if not torch.equal(got, again):
+        raise AssertionError("gather_decode is not deterministic")
+    del got, ref, again
+    tile, rows, _ = gr.decode_tiling(N, k)
+    tiles = check_tile_union(idx, W.shape[0], tile, rows) if tile else None
+    idx_long = idx.long()
+    distinct = torch.unique(idx).numel()
+    return {
+        "tokens": N, "k": k, "distinct_rows": distinct, "rows_a_tile_names": tile_stats(idx), "tiles": tiles,
+        "max_abs_err": err, "err_bound": err_bound, "deterministic": True,
+        "kernel_ms": time_ms(lambda: gr.gather_decode(idx, vals, W)),
+        "plain_ms": time_ms(lambda: gr.gather_decode_plain(idx, vals, W), iters=3),
+        "library_ms": time_ms(lambda: F.embedding_bag(idx_long, W, per_sample_weights=vals, mode="sum")),
+        **k2_decode_bound(N, k, d, distinct), "no_reuse_gb": N * k * d * 4 / 1e9,
+    }
+
+
+def check_gather_rows(W: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor, chunk, uniform: bool = False) -> dict:
     """K2 on the attribution prefix's clean top-k (`idx`, `vals`: tokens x k)
     of the decoder `W`: copy mode bit-exact against `W[idx]` on the first 128
     tokens' rows, decode mode within an fp32 bound of its plain version and
     deterministic, each timed; decode mode also at a chunk's re-selected
-    top-k (`chunk` = (vals, idx) of 8 features stacked)."""
+    top-k (`chunk` = (vals, idx) of 8 features stacked) and, with `uniform`,
+    on a seeded uniform index set of the same shape, where tiles share no
+    rows.  The decode's pre-pass is held to its plain version, and the
+    rows a tile names are printed for both index sets."""
     import torch.nn.functional as F
 
     from multimodal_sae_tpu_torch.ops import gather_rows as gr
@@ -991,40 +1076,23 @@ def check_gather_rows(W: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor, ch
             / HBM_BYTES_PER_S * 1e3}
     del got, ref
 
-    got, ref = gr.gather_decode(idx, vals, W), gr.gather_decode_plain(idx, vals, W)
-    again = gr.gather_decode(idx, vals, W)
-    torch.cuda.synchronize()
-    # Both sum k fp32 products in their own order: each differs from the
-    # exact sum by at most k * 2^-24 * sum_j |vals_j| * max |W|.
-    err_bound = 2 * k * 2.0 ** -24 * vals.abs().sum(-1).max().item() * W.abs().max().item()
-    err = (got - ref).abs().max().item()
-    if not (torch.isfinite(got).all() and err <= err_bound):
-        raise AssertionError(f"gather_decode off by {err} (bound {err_bound})")
-    if not torch.equal(got, again):
-        raise AssertionError("gather_decode is not deterministic")
-    del got, ref, again
-    idx_long = idx.long()
-    distinct = torch.unique(idx).numel()
-    decode = {
-        "tokens": N, "k": k, "distinct_rows": distinct, "max_abs_err": err, "err_bound": err_bound,
-        "deterministic": True, "kernel_ms": time_ms(lambda: gr.gather_decode(idx, vals, W)),
-        "plain_ms": time_ms(lambda: gr.gather_decode_plain(idx, vals, W), iters=3),
-        "library_ms": time_ms(lambda: F.embedding_bag(idx_long, W, per_sample_weights=vals, mode="sum")),
-        **k2_decode_bound(N, k, d, distinct), "no_reuse_gb": N * k * d * 4 / 1e9,
-    }
+    decode = _check_decode(W, idx, vals)
     c_vals, c_idx = chunk
     c_distinct = torch.unique(c_idx).numel()
     decode_chunk = {
-        "tokens": c_idx.shape[0], "distinct_rows": c_distinct,
+        "tokens": c_idx.shape[0], "distinct_rows": c_distinct, "rows_a_tile_names": tile_stats(c_idx),
         "kernel_ms": time_ms(lambda: gr.gather_decode(c_idx, c_vals, W)),
         "library_ms": time_ms(lambda: F.embedding_bag(c_idx.long(), W, per_sample_weights=c_vals, mode="sum")),
         **k2_decode_bound(c_idx.shape[0], c_idx.shape[1], d, c_distinct), "no_reuse_gb": c_idx.numel() * d * 4 / 1e9,
     }
-    emit({"phase": "gather_rows", "W": [W.shape[0], d], "dtype": "float32", "copy": copy,
-          "decode_clean_topk": decode, "decode_chunk_of_8": decode_chunk})
+    line = {"phase": "gather_rows", "W": [W.shape[0], d], "dtype": "float32", "copy": copy,
+            "decode_clean_topk": decode, "decode_chunk_of_8": decode_chunk}
+    if uniform:
+        line["decode_uniform"] = _check_decode(W, *_uniform_set(W, N, k))
+    emit(line)
     torch.cuda.empty_cache()
     return {"ms": decode["kernel_ms"], "plain_ms": decode["plain_ms"], "bound_ms": decode["bound_ms"],
-            "bound_by": decode["bound_by"], "library_ms": decode["library_ms"], "max_abs_err": err}
+            "bound_by": decode["bound_by"], "library_ms": decode["library_ms"], "max_abs_err": decode["max_abs_err"]}
 
 
 def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -1217,8 +1285,9 @@ KERNEL_GROUPS = (
     ("flash_attention_bwd", ("dkdv_kernel", "dq_kernel", "delta_kernel")),
     ("flash_attention", ("flash_fwd_kernel",)),
     ("splice_decode", ("splice_decode_kernel",)),
-    ("gather_rows", ("gather_decode_kernel", "gather_rows_kernel")),
+    ("gather_rows", ("gather_decode_kernel", "gather_rows_kernel", "decode_tile_kernel")),
     ("decode_dvals", ("decode_dvals_kernel",)),
+    ("k2_tile_pre_pass", ("tile_union_kernel",)),
     ("block_max", ("block_max_kernel",)),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "cublas")),
 )
@@ -1342,7 +1411,7 @@ def phase_attribution_path(dev, card: str) -> dict:
     alloc["reserved_gb_before"] = alloc_before.get("reserved_bytes.all.current", 0) / 1e9
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     k2 = check_gather_rows(sae.params["W_dec"], step.wide_idx[:, :k], step.wide_vals[:, :k],
-                           step.reselect(torch.tensor(inside, device=dev)))
+                           step.reselect(torch.tensor(inside, device=dev)), uniform=True)
     splice = check_splice_decode(step, inside, outside, sae.params["W_dec"], sae.params["b_dec"])
     del step
     torch.cuda.empty_cache()
@@ -1569,10 +1638,12 @@ def check_fast_vs_slow(params: dict, x: torch.Tensor, cfg) -> tuple:
              "grad_l2_rel": rel, "bound": FAST_SLOW_REL, "ms": ms, "launches": launches}, launches, idx)
 
 
-def check_decode_dvals(W: torch.Tensor, idx: torch.Tensor) -> dict:
+def check_decode_dvals(W: torch.Tensor, idx: torch.Tensor, uniform: bool = False) -> dict:
     """K2's dvals mode at (tokens, k) = idx's shape on the decoder W, with a
     seeded g: within an fp32 bound of its plain version, equal bits over two
-    calls, timed (median of 5) beside its bound and the plain version."""
+    calls, timed (median of 5) beside its bound and the plain version, with
+    the rows a tile names; with `uniform`, also on a seeded uniform index
+    set of the same shape."""
     from multimodal_sae_tpu_torch.ops import gather_rows as gr
 
     N, k = idx.shape
@@ -1595,13 +1666,16 @@ def check_decode_dvals(W: torch.Tensor, idx: torch.Tensor) -> dict:
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     fma_ms = N * k * d / FP32_FMAS * 1e3
     repeats = time_repeats(lambda: gr.decode_dvals(g, idx, W, torch.float32))
-    line = {"tokens": N, "k": k, "W": [W.shape[0], d], "distinct_rows": distinct, "max_abs_err": err,
+    line = {"tokens": N, "k": k, "W": [W.shape[0], d], "distinct_rows": distinct,
+            "rows_a_tile_names": tile_stats(idx), "max_abs_err": err,
             "err_bound": err_bound, "deterministic": True, "kernel_ms": repeats["median"],
             "kernel_ms_repeats": repeats, "plain_ms": time_ms(lambda: gr.decode_dvals_plain(g, idx, W, torch.float32), iters=3),
             "bound_ms": max(bytes_ms, fma_ms), "bound_bytes_ms": bytes_ms, "bound_fma_ms": fma_ms,
             "bound_by": "bytes" if bytes_ms >= fma_ms else "operations", "no_reuse_gb": N * k * d * W.element_size() / 1e9}
     del g, got, again, ref
     torch.cuda.empty_cache()
+    if uniform:
+        line["uniform"] = check_decode_dvals(W, _uniform_set(W, N, k)[0])
     return line
 
 
@@ -2558,7 +2632,7 @@ def phase_general_attribution_path(dev, card: str, model, sae24) -> dict:
     del out
     profile = profile_chunk(lambda f: general_attribution_maps(model, sae_dict, batch, metric, f, progress=False),
                             feats[:1])
-    dvals = check_decode_dvals(sae24.params["W_dec"], upper_idx)
+    dvals = check_decode_dvals(sae24.params["W_dec"], upper_idx, uniform=True)
     del upper_idx
     k3_bwd = check_flash_chain(dev, 1, 2432)
     reduced = _reduced_comparison(model, sae_dict, dev)
@@ -2578,7 +2652,8 @@ def phase_general_attribution_path(dev, card: str, model, sae24) -> dict:
         "launches_per_feature": {name: (n - clean.get(name, 0)) / F for name, n in launches.items()},
         "dvals_ms": dvals["kernel_ms"], "dvals_share_of_feature": dvals["kernel_ms"] / ms_per_feature,
         "dvals_check": {key: dvals[key] for key in ("tokens", "k", "distinct_rows", "max_abs_err", "err_bound",
-                                                    "plain_ms", "bound_ms", "bound_by")},
+                                                    "plain_ms", "bound_ms", "bound_by", "rows_a_tile_names",
+                                                    "uniform")},
         "one_call_profile": profile, "in_lower_topk": in_lower, "flash_attention_bwd_b1": k3_bwd, "outside_topk_exact_zero": True,
         "reduced_card_vs_cpu": reduced,
         "card": card,
@@ -3040,12 +3115,16 @@ def _profile_decode(model, batch, interventions, steps: int, **kw) -> dict:
     return {"decode_steps": steps, **summarize_profile(prof, state["wall_ms"])}
 
 
-def _check_clamp_chunk(sae, x: torch.Tensor, feats_of_tokens: torch.Tensor) -> dict:
+def _check_clamp_chunk(sae, x: torch.Tensor, feats_of_tokens: torch.Tensor, prompt_len: int) -> dict:
     """One token chunk of the clamp on the card against its plain chain on
     the same pre-activations: the top-k (K1's two block-max levels) against
     `torch.topk` as sets, and the decode (K2's decode mode) within its fp32
     bound of `gather_decode_plain` of the same selection; each kernel timed
-    at this chunk beside its bound, its plain version and the library call."""
+    at this chunk beside its bound, its plain version and the library call.
+    The chunk's rows of one prompt of `prompt_len` tokens are flattened
+    row-major, as `clamp_hidden` flattens them; the rows a tile names are
+    printed in that order and position-major (a tile one position across
+    rows)."""
     import torch.nn.functional as F
 
     from multimodal_sae_tpu_torch.ops import block_max as bm, gather_rows as gr, top_k
@@ -3074,7 +3153,10 @@ def _check_clamp_chunk(sae, x: torch.Tensor, feats_of_tokens: torch.Tensor) -> d
     k1 = {key: sum(level[key] for level in levels) for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
     k1.update(bound_by="bytes", levels=levels, max_abs_err=0.0, topk_as_sets=True)
     idx_long, distinct = idx.long(), torch.unique(idx).numel()
+    t = torch.arange(N, device=x.device)
+    position_major = torch.argsort((t % prompt_len) * N + t)
     k2 = {"tokens": N, "k": k, "distinct_rows": distinct, "max_abs_err": err, "err_bound": err_bound,
+          "rows_a_tile_names": tile_stats(idx), "rows_a_tile_names_position_major": tile_stats(idx[position_major]),
           "ms": time_ms(lambda: gr.gather_decode(idx, vals, W)),
           "plain_ms": time_ms(lambda: gr.gather_decode_plain(idx, vals, W), iters=3),
           "library_ms": time_ms(lambda: F.embedding_bag(idx_long, W, per_sample_weights=vals, mode="sum")),
@@ -3294,7 +3376,7 @@ def phase_steering_path(dev, card: str, model, sae) -> dict:
     del picks_steered
 
     # Check 3: one token chunk of the clamp against its plain chain.
-    clamp_chunk = _check_clamp_chunk(sae, x_chunk, feats_of_tokens)
+    clamp_chunk = _check_clamp_chunk(sae, x_chunk, feats_of_tokens, S_p)
     del x_chunk, feats_of_tokens
 
     # Readings: 16 decode steps under the profiler, the decode step's bound,

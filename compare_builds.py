@@ -4,6 +4,8 @@ card, in one process, in turns.
 
     python3 compare_builds.py flash_fwd [--source NAME=PATH.cu ...] [--unchecked NAME=PATH.cu ...] [--out DIR]
     python3 compare_builds.py splice [--source NAME=PATH.cu ...] [--unchecked NAME=PATH.cu ...] [--out DIR]
+    python3 compare_builds.py decode --source old=PATH.cu [--out DIR]
+    python3 compare_builds.py dvals --source old=PATH.cu [--out DIR]
 
 Each `--source` is another build of the kernel's source with the package's
 C entry point (an older revision, say `git show
@@ -41,6 +43,37 @@ uniform random latents with features 0-7 raised by 0.9995, so that all 8
 sit in nearly every token's top-k.  The check, on each chunk: equal bits to
 the parent path, `(gather_decode(reselect) + b_dec).to(clean.dtype)`.  Each
 line adds the hit count and the two bound terms.
+
+decode -- K2's decode mode (`gather_rows.cu`, C entry `gather_decode`),
+with `embedding_bag` as the yardstick.  A `--source` here is a build of
+the first design's C entry (`gather_decode(w, idx, vals, y, L, N, d, k,
+bf16, stream)`, as in `git show REV:multimodal_sae_tpu_torch/csrc/
+gather_rows.cu` before the tiles).  The index sets are the main path's:
+the attribution prefix's clean top-k (the splice's pools above: 2,432
+tokens), the general path's at its upper splice (layers.24 of the same
+prompt's forward spliced at layers.16 and layers.24, as chip_smoke.py's
+general phase runs it; values drawn), the image probe row's (a random
+llama3-llava-next-8b, seed 0, as chip_smoke.py's image attribution phase
+builds it: one 480 x 640 image, a chat prompt, 2,358 tokens), a steering
+clamp chunk made from the prefix's
+pools (64 rows of its first 74 tokens, row b's list its clamped feature
+first and then its pool without it, flattened b-major and cut to 4,096, as
+`features/steering.py` flattens a chunk), and a seeded uniform set at
+(2,432, 256), where tiles share almost nothing.  The decoder is the
+131,072 x 4,096 fp32 W_dec of the SAE above.  The checks: the package
+within chip_smoke.py's fp32 bound of the plain version and equal to itself
+over two calls, and each build's output equal bit for bit to the
+package's, which shows that the chain order was kept; a build that differs
+in any bit ends the run with an error.  Each line adds |U| per tile of 32
+tokens and the bound.
+
+dvals -- K2's dvals mode (C entry `decode_dvals`), no yardstick (no one
+PyTorch call computes it); a `--source` has the package's C entry
+(`decode_dvals(w, idx, g, out, L, N, d, k, w_bf16, out_bf16, stream)`).
+The same index sets with a seeded g (N, 4,096); the check: the package and
+each build within chip_smoke.py's `check_decode_dvals` bound of the plain
+version (a build outside it ends the run with an error), and the package
+equal to itself bit for bit over two calls.
 """
 
 from __future__ import annotations
@@ -210,9 +243,12 @@ def splice_launcher(lib: ctypes.CDLL):
     return splice
 
 
-def _prefix(dev):
+def _prefix(dev, upper: bool = False):
     """The attribution prefix's pool and clean splice, as chip_smoke.py's
-    attribution phase builds them."""
+    attribution phase builds them; with `upper`, also the top-k indices at
+    layers.24 of the general path's clean forward spliced at layers.16 and
+    layers.24 (chip_smoke.py's general phase: a second SAE, seed 1, at
+    layers.16)."""
     from functools import partial
 
     from multimodal_sae_tpu_torch.config import SaeConfig
@@ -228,8 +264,13 @@ def _prefix(dev):
     ids = np.random.default_rng(1).integers(0, cfg.vocab_size, size=(1, 2432))
     metric = partial(get_logit_diff, answer_token_indices=torch.tensor([[1000, 2000]], device=dev))
     step = build_fast_attribution(model, "layers.24", sae, {"input_ids": ids}, metric)
-    del model
-    return step, sae
+    if not upper:
+        del model
+        return step, sae
+    sae16 = Sae(4096, SaeConfig(num_latents=131072, k=256), decoder=True, seed=1, device=dev)
+    tops = cs._topk_at_hooks(model, {"input_ids": ids}, {"layers.16": sae16, "layers.24": sae})["layers.24"]
+    del model, sae16
+    return step, sae, tops
 
 
 def _synthetic_pool(W, b, N, k, dev):
@@ -295,10 +336,185 @@ def run_splice(builds: dict, unchecked: dict, dev, report: dict) -> None:
     cs.emit({"checks": report["checks"]})
 
 
+# --- decode and dvals -----------------------------------------------------------
+
+
+def decode_launcher(lib: ctypes.CDLL):
+    """The first design's gather_decode(idx, vals, W) through `lib`."""
+    fn = lib.gather_decode
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+    def decode(idx, vals, W):
+        y = torch.empty(idx.shape[0], W.shape[1], dtype=W.dtype, device=W.device)
+        kernels.check(fn(W.data_ptr(), idx.data_ptr(), vals.data_ptr(), y.data_ptr(), W.shape[0], idx.shape[0],
+                         W.shape[1], idx.shape[1], int(W.dtype == torch.bfloat16),
+                         torch.cuda.current_stream().cuda_stream), "gather_decode")
+        return y
+
+    return decode
+
+
+def dvals_launcher(lib: ctypes.CDLL):
+    """The first design's decode_dvals(g, idx, W, out_dtype) through `lib`."""
+    fn = lib.decode_dvals
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+    def dvals(g, idx, W, out_dtype):
+        out = torch.empty(idx.shape, dtype=out_dtype, device=W.device)
+        kernels.check(fn(W.data_ptr(), idx.data_ptr(), g.data_ptr(), out.data_ptr(), W.shape[0], idx.shape[0],
+                         W.shape[1], idx.shape[1], int(W.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+                         torch.cuda.current_stream().cuda_stream), "decode_dvals")
+        return out
+
+    return dvals
+
+
+def _image_prefix(dev):
+    """The image probe row's pool, as chip_smoke.py's image attribution phase
+    builds it (its probe row 0: one 480 x 640 image and a chat prompt)."""
+    from functools import partial
+
+    from multimodal_sae_tpu_torch.config import SaeConfig
+    from multimodal_sae_tpu_torch.features.patching import build_fast_attribution, get_logit_diff
+    from multimodal_sae_tpu_torch.models.llama import LlamaConfig
+    from multimodal_sae_tpu_torch.models.llava_next import LlavaNextConfig, LlavaNextModel, repack_left_padded
+    from multimodal_sae_tpu_torch.sae import Sae
+
+    cfg = LlavaNextConfig(text_config=LlamaConfig(vocab_size=128257, flash_attention=True))
+    model = LlavaNextModel.random(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    sae = Sae(4096, SaeConfig(num_latents=131072, k=256), decoder=True, seed=0, device=dev)
+    rng = np.random.default_rng(21)
+    pixels = {hw: cs._image_rows(cfg, [hw], rng)[0]["pixel_values"] for hw in (cs.UNIFORM_HW, cs.RAGGED_HW)}
+    prompt = [rng.integers(0, 128000, size=8).tolist() for _ in range(2)][0]
+    batch = repack_left_padded(cs._collate_prepared(cfg, [
+        {"prompt_ids": cs.CHAT_HEAD + [cfg.image_token_index] + prompt + cs.CHAT_TAIL, "image_size": cs.UNIFORM_HW,
+         "pixel_values": pixels[cs.UNIFORM_HW]}]))
+    batch = {key: val for key, val in batch.items() if key != "attention_mask" or not val.all()}
+    metric = partial(get_logit_diff, answer_token_indices=torch.tensor([[1, 2]], device=dev))
+    step = build_fast_attribution(model, "model.layers.24", sae, batch, metric)
+    del model, sae
+    return step
+
+
+def _clamp_chunk(wide_idx, wide_vals, k: int, dev, rows: int = 64, prompt: int = 74):
+    """A steering clamp chunk from the prefix's pools: row b clamps feature
+    f_b to chip_smoke.CLAMP, so its list at token p is f_b and then the
+    pool of p without f_b, cut to k; b-major, cut to 4,096 tokens."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    feats = torch.randperm(131072, generator=gen, device=dev)[:rows]
+    feats[:8] = wide_idx[prompt - 1, :8]  # some clamped features already in the pools
+    pool_idx, pool_vals = wide_idx[:prompt].long(), wide_vals[:prompt].float()
+    idx, vals = [], []
+    for f in feats.tolist():
+        keep = torch.argsort((pool_idx == f).int(), dim=1, stable=True)[:, :k - 1]  # the pool without f, in order
+        idx.append(torch.cat([torch.full((prompt, 1), f, device=dev), pool_idx.gather(1, keep)], 1))
+        vals.append(torch.cat([torch.full((prompt, 1), cs.CLAMP, device=dev), pool_vals.gather(1, keep)], 1))
+    return (torch.cat(idx)[:4096].to(torch.int32).contiguous(), torch.cat(vals)[:4096].contiguous())
+
+
+def _decode_sets(dev):
+    """{name: (idx, vals)} at the main path's shapes, and the decoder."""
+    step, sae, upper = _prefix(dev, upper=True)
+    k = step.k
+    W = sae.params["W_dec"]
+    gen = torch.Generator(device=dev).manual_seed(6)
+    sets = {"prefix": (step.wide_idx[:, :k].to(torch.int32).contiguous(), step.wide_vals[:, :k].contiguous()),
+            "clamp_chunk": _clamp_chunk(step.wide_idx, step.wide_vals, k, dev),
+            "upper_splice": (upper.to(torch.int32).contiguous(),
+                             torch.rand(upper.shape, generator=gen, device=dev).sort(dim=1, descending=True).values)}
+    del step
+    torch.cuda.empty_cache()
+    image = _image_prefix(dev)
+    sets["image_row"] = (image.wide_idx[:, :k].to(torch.int32).contiguous(), image.wide_vals[:, :k].contiguous())
+    del image
+    torch.cuda.empty_cache()
+    sets["uniform"] = cs._uniform_set(W)  # chip_smoke.py's
+    return sets, W
+
+
+def _set_line(name, idx, W) -> dict:
+    from multimodal_sae_tpu_torch.ops import gather_rows as gr
+
+    U = gr.tile_union_sizes(idx, 32).float()
+    return {"set": name, "tokens": idx.shape[0], "k": idx.shape[1], "distinct_rows": torch.unique(idx).numel(),
+            "rows_per_tile_of_32": {"mean": U.mean().item(), "max": U.max().item()}}
+
+
+def run_decode(builds: dict, unchecked: dict, dev, report: dict) -> None:
+    import torch.nn.functional as F
+
+    from multimodal_sae_tpu_torch.ops import gather_rows as gr
+
+    sets, W = _decode_sets(dev)
+    d = W.shape[1]
+    for name, (idx, vals) in sets.items():
+        ref = builds["package"](idx, vals, W)
+        k = idx.shape[1]
+        err = (ref - gr.gather_decode_plain(idx, vals, W)).abs().max().item()
+        bound = 2 * k * 2.0 ** -24 * vals.abs().sum(-1).max().item() * W.abs().max().item()
+        report["checks"].setdefault("plain", {})[name] = {"package_max_abs_err": err, "bound": bound}
+        if not err <= bound:
+            raise AssertionError(f"the package's decode is off the plain version by {err} on {name} (bound {bound})")
+        for build, fn in builds.items():
+            got = fn(idx, vals, W)
+            torch.cuda.synchronize()
+            ok = cs._bits_equal(got, ref)
+            report["checks"].setdefault(build, {})[name] = {"bit_equal_package": ok}
+            if not ok:
+                cs.emit({"checks": report["checks"]})
+                raise AssertionError(f"{build}'s decode differs from the package's in some bit on {name}")
+        calls = {build: (lambda f=fn: f(idx, vals, W)) for build, fn in {**builds, **unchecked}.items()}
+        idx_long = idx.long()
+        calls["embedding_bag"] = lambda: F.embedding_bag(idx_long, W, per_sample_weights=vals, mode="sum")
+        line = {**_set_line(name, idx, W), "unchecked": sorted(unchecked),
+                **cs.k2_decode_bound(idx.shape[0], idx.shape[1], d, torch.unique(idx).numel()),
+                "ms": time_in_turns(calls)}
+        cs.emit(line)
+        report["shapes"].append(line)
+        del ref, calls
+        torch.cuda.empty_cache()
+    cs.emit({"checks": report["checks"]})
+
+
+def run_dvals(builds: dict, unchecked: dict, dev, report: dict) -> None:
+    from multimodal_sae_tpu_torch.ops import gather_rows as gr
+
+    sets, W = _decode_sets(dev)
+    d = W.shape[1]
+    for name, (idx, _) in sets.items():
+        N, k = idx.shape
+        g = torch.randn(N, d, generator=torch.Generator(device=dev).manual_seed(4), device=dev)
+        plain = gr.decode_dvals_plain(g, idx, W, torch.float32)
+        bound = 2 * d * 2.0 ** -24 * g.abs().sum(-1).max().item() * W.abs().max().item()
+        twice = cs._bits_equal(gr.decode_dvals(g, idx, W, torch.float32), gr.decode_dvals(g, idx, W, torch.float32))
+        if not twice:
+            raise AssertionError(f"the package's dvals differ between two calls on {name}")
+        for build, fn in builds.items():
+            err = (fn(g, idx, W, torch.float32) - plain).abs().max().item()
+            report["checks"].setdefault(build, {})[name] = {"max_abs_err_plain": err, "bound": bound}
+            if not err <= bound:
+                raise AssertionError(f"{build}'s dvals are off the plain version by {err} on {name} (bound {bound})")
+        calls = {build: (lambda f=fn: f(g, idx, W, torch.float32)) for build, fn in {**builds, **unchecked}.items()}
+        distinct = torch.unique(idx).numel()
+        nbytes = distinct * d * 4 + N * d * 4 + N * k * 8
+        line = {**_set_line(name, idx, W), "unchecked": sorted(unchecked),
+                "bound_bytes_ms": nbytes / cs.HBM_BYTES_PER_S * 1e3, "bound_fma_ms": N * k * d / cs.FP32_FMAS * 1e3,
+                "ms": time_in_turns(calls)}
+        cs.emit(line)
+        report["shapes"].append(line)
+        del plain, calls, g
+        torch.cuda.empty_cache()
+    cs.emit({"checks": report["checks"]})
+
+
 KERNELS = {  # name: (the package's library, its entry, a build's launcher, ptxas notes to print, run)
     "flash_fwd": ("flash_attention", "flash_attention_fwd", flash_launcher,
                   ("registers", "spill", "serialized"), run_flash_fwd),
     "splice": ("gather_rows", "splice_decode", splice_launcher, ("registers", "spill", "splice"), run_splice),
+    "decode": ("gather_rows", "gather_decode", decode_launcher, ("registers", "spill"), run_decode),
+    "dvals": ("gather_rows", "decode_dvals", dvals_launcher, ("registers", "spill"), run_dvals),
 }
 
 

@@ -18,8 +18,21 @@ a multiple of 8) come from its tiling and are not kept: any number of rows,
 and d a multiple of the 16-byte vector.
 
 Bound on an H100: bytes, the distinct rows of W named by idx read once plus
-the indices, weights and output, over 3.35 TB/s (the splice and dvals: or
-their fp32 FMAs over 33.5 T FMA/s, whichever is larger)."""
+the indices, weights and output, over 3.35 TB/s (the decode, splice and
+dvals: or their fp32 FMAs over 33.5 T FMA/s, whichever is larger).
+
+Tokens share rows, and a kernel that reads each token's rows alone runs at
+the L2 cache's rate.  So the decode mode works on tiles of consecutive
+tokens: a pre-pass on the card (`tile_union`) finds each tile's distinct
+rows, ranks them by the number of the tile's (token, j) pairs that name
+them, and the kernel stages the most used in shared memory once for the
+whole tile; the other pairs read their row alone (copied a chunk of steps
+at a time into its warps' own buffers).  A tile whose staged rows cover
+under `MIN_COVER` percent of its pairs takes the direct path (the first
+design, one token at a time).  The tiling and its scratch are the kernel's
+(`decode_tiling`).  `tile_union_plain` is the pre-pass's plain version and
+`tile_union_sizes` the distinct rows per tile.  The dvals mode keeps the
+first design: one block a token."""
 
 from __future__ import annotations
 
@@ -41,6 +54,16 @@ dvals_launches = 0
 
 DECODE_DTYPES = (torch.float32, torch.bfloat16)
 PLAIN_ROWS = 128  # the plain splice and dvals gather (128, k, d) at a time: 512 MiB at k = 256, d = 4096 fp32
+
+TILE_PAIRS = 8192
+"""(token, j) pairs a tile may hold: the pre-pass sorts them in shared memory."""
+INVALID = -(2 ** 31)
+"""The pre-pass's code for an index outside [0, L)."""
+MIN_COVER = 50
+"""A decode tile takes the staged path when its staged rows cover at least
+this percent of its pairs (MIN_COVER in the source)."""
+USE_CAP = 32
+"""The pre-pass ranks a row by the pairs that name it, counted up to this."""
 
 
 def gather_rows_plain(W: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -103,8 +126,11 @@ def gather_decode(idx: torch.Tensor, vals: torch.Tensor, W: torch.Tensor) -> tor
     """y[..., :] = sum_j vals[..., j] * W[idx[..., j], :], accumulated in fp32
     in the order j = 0 .. k-1, output in vals' dtype.  On CUDA tensors (W
     fp32 or bf16, vals of W's dtype) this launches K2's decode mode or
-    raises; on CPU tensors it runs the plain version.  The kernel is
-    deterministic: equal inputs give equal bits."""
+    raises; on CPU tensors it runs the plain version.  The kernel takes
+    tiles of tokens (`decode_tiling`), staging each tile's most used rows in
+    shared memory; every output element stays the one fp32 chain in j
+    order, so the result does not depend on the tiling and equal inputs
+    give equal bits."""
     global launches
     if idx.shape != vals.shape:
         raise ValueError(f"idx {tuple(idx.shape)} and vals {tuple(vals.shape)} differ")
@@ -123,15 +149,109 @@ def gather_decode(idx: torch.Tensor, vals: torch.Tensor, W: torch.Tensor) -> tor
         return y.reshape(*lead, d)
     if k == 0:
         return y.zero_().reshape(*lead, d)
+    words = decode_tiling(idx2.shape[0], k)[2]
+    scratch = torch.empty(words, dtype=torch.int32, device=W.device) if words else None
     with torch.cuda.device(W.device):
-        err = _fn("gather_decode", [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p])(
-            W.data_ptr(), idx2.data_ptr(), vals2.data_ptr(), y.data_ptr(), W.shape[0],
-            idx2.shape[0], d, k, int(W.dtype == torch.bfloat16),
+        err = _fn("gather_decode", [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
+                  + [ctypes.c_void_p] * 2)(
+            W.data_ptr(), idx2.data_ptr(), vals2.data_ptr(), y.data_ptr(), W.shape[0], idx2.shape[0], d, k,
+            int(W.dtype == torch.bfloat16), None if scratch is None else scratch.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     kernels.check(err, "gather_decode")
     launches += 1
     return y.reshape(*lead, d)
+
+
+def decode_tiling(N: int, k: int) -> tuple:
+    """The decode kernel's tiling at (N, k), from its library: (tokens a
+    tile takes, 0 for the direct path alone; rows a tile stages at most;
+    int32 words of scratch it needs)."""
+    tiling = (ctypes.c_int * 2)()
+    fn = getattr(kernels.load("gather_rows"), "gather_decode_scratch")
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    words = fn(N, k, ctypes.addressof(tiling))
+    return tiling[0], tiling[1], words
+
+
+def tile_union_plain(idx: torch.Tensor, L: int, tile: int, cap: int):
+    """The decode mode's pre-pass, in tiles of `tile` consecutive
+    tokens of idx (N, k): (code, rows, info).  Of a tile's distinct rows in
+    [0, L), the `cap` named by the most of its (token, j) pairs are staged
+    (counts above `USE_CAP` rank as `USE_CAP`; equal counts in row order),
+    rows[t, :staged] holding them in row order (the rest of rows[t] is 0
+    here, and left unwritten by the kernel).  code[n, j]: the row's place in
+    rows[t] when staged, -(row + 1) when not, `INVALID` outside [0, L).
+    info[t]: (staged, 1 if the staged rows cover at least `MIN_COVER` percent
+    of the tile's valid pairs, distinct rows, pairs covered)."""
+    N, k = idx.shape
+    tiles = -(-N // tile)
+    dev = idx.device
+    code = torch.full((N, k), INVALID, dtype=torch.int32, device=dev)
+    rows = torch.zeros(tiles, max(cap, 1), dtype=torch.int32, device=dev)
+    info = torch.zeros(tiles, 4, dtype=torch.int32, device=dev)
+    for t in range(tiles):
+        seg = idx[t * tile:(t + 1) * tile].reshape(-1).long()
+        valid = (seg >= 0) & (seg < L)
+        uniq, inverse, counts = torch.unique(seg[valid], sorted=True, return_inverse=True, return_counts=True)
+        order = torch.sort(-counts.clamp(max=USE_CAP), stable=True).indices  # most used first, ties in row order
+        staged = min(uniq.numel(), cap)
+        chosen = order[:staged].sort().values  # the staged runs, in row order
+        place = torch.full_like(counts, -1)
+        place[chosen] = torch.arange(staged, device=dev)
+        p = place[inverse]
+        c = torch.full_like(seg, INVALID)
+        c[valid] = torch.where(p >= 0, p, -(seg[valid] + 1))
+        code[t * tile:(t + 1) * tile] = c.reshape(-1, k).to(torch.int32)
+        rows[t, :staged] = uniq[chosen].to(torch.int32)
+        cover, n_valid = int(counts[chosen].sum()), int(valid.sum())
+        info[t] = torch.tensor([staged, int(n_valid > 0 and cover * 100 >= MIN_COVER * n_valid), uniq.numel(), cover])
+    return code, rows, info
+
+
+def tile_union(idx: torch.Tensor, L: int, tile: int, cap: int):
+    """`tile_union_plain`'s (code, rows, info).  On a CUDA idx this launches
+    the pre-pass kernel the decode mode runs (tile * k <= 8192;
+    rows past each tile's staged count are left unwritten); on a CPU idx it
+    runs the plain version.  A check of the kernels, not a step of any path:
+    it counts no launch."""
+    if idx.dim() != 2 or idx.is_floating_point():
+        raise ValueError(f"idx must be an integer (N, k), got {tuple(idx.shape)} {idx.dtype}")
+    N, k = idx.shape
+    if not (1 <= tile and 1 <= k and tile * k <= TILE_PAIRS and cap >= 0):
+        raise ValueError(f"tiles of {tile} tokens at k={k} need 1 <= tile * k <= {TILE_PAIRS}, cap {cap} >= 0")
+    if idx.device.type == "cpu":
+        return tile_union_plain(idx, L, tile, cap)
+    idx2 = idx.to(torch.int32).contiguous()
+    code = torch.empty(idx2.shape, dtype=torch.int32, device=idx.device)
+    rows = torch.empty(-(-N // tile), max(cap, 1), dtype=torch.int32, device=idx.device)
+    info = torch.empty(rows.shape[0], 4, dtype=torch.int32, device=idx.device)
+    if N == 0:
+        return code, rows, info
+    with torch.cuda.device(idx.device):
+        err = _fn("tile_union", [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong] + [ctypes.c_int] * 3
+                  + [ctypes.c_void_p] * 4)(
+            idx2.data_ptr(), L, N, k, tile, cap, code.data_ptr(), rows.data_ptr(), info.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    kernels.check(err, "tile_union")
+    return code, rows, info
+
+
+def tile_union_sizes(idx: torch.Tensor, tile: int) -> torch.Tensor:
+    """The number of distinct values in each tile of `tile` consecutive rows
+    of idx (N, k), the last tile possibly short: |U| per tile, the rows a
+    tile would stage to read each of them once."""
+    N, k = idx.shape
+    full = N // tile
+    sizes = []
+    if full:
+        s = idx[:full * tile].reshape(full, tile * k).sort(dim=1).values
+        sizes.append((s[:, 1:] != s[:, :-1]).sum(1) + 1)
+    if N % tile:
+        sizes.append(torch.unique(idx[full * tile:]).numel() * torch.ones(1, dtype=torch.long, device=idx.device))
+    return torch.cat(sizes) if sizes else torch.zeros(0, dtype=torch.long, device=idx.device)
 
 
 def drop_positions(wide_idx: torch.Tensor, feats: torch.Tensor) -> torch.Tensor:
