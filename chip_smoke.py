@@ -220,7 +220,28 @@ Phases; any failure raises and ends the run with a non-zero exit code:
    IMAGE_PAD_SHIFT_FP32_REL, read in bf16 with K3 and eager); then K3's chain (forward with lse, backward) at
    the suffix's two shapes (8, 32, 8, 2,358, 128) and (8, 32, 8, 2,946,
    128) left-padded, against the plain pair and timed;
-12. a `kernels` JSON line, the card line, and the result line.
+12. the int8 and module-sharded phases (models/quant.py,
+   train/module_sharded.py): int8_cache_path, after nccl_path in the cache
+   phase's directory: cache_path's subject quantised on the card leaf by
+   leaf, its quantised leaves held bit for bit against a host quantisation,
+   both quantised products at one layer's shapes against their plain
+   versions (`check_qmatmul`: W8A8's int32 sums equal, padded rows and k
+   included; W8A16 within W8A16_REL), then 2 batches in each of three modes
+   (W8A16, W8A8, W8A8 with the SAE's encoder int8) through `FeatureCache`,
+   the splits checked, the entries shared with cache_path's splits and the
+   hidden state's error reported; int8_subject_path, after the steering
+   phase: the attribution phase's subject and SAE in bf16, then quantised
+   with W8A8 products, one `fast_attribution_maps` call (16 features) and a
+   16-token greedy generate at batch 1 on each, the saliency correlations
+   reported; module_sharded_train_path, after dp_train_path: `SaeTrainer`
+   with `distribute_modules` as two gloo ranks sharing the card (layers.1
+   and layers.3 of a 4-layer subject, one a rank, the full-width SAE with
+   AuxK, the hidden states exchanged through pinned host memory) against
+   one process training both on the same global batches, within
+   MS_UPDATE_REL; int8_image_path, after K3's image attribution chains: the
+   image cache phase's subject quantised (W8A16 tower), then with the
+   tower's products W8A8, one batch of 4 images each;
+13. a `kernels` JSON line, the card line, and the result line.
 
 Needs one CUDA card; exits non-zero without one.  Imports nothing of JAX.
 Every rank process has a timeout (DP_PROC_TIMEOUT_S) and so does every
@@ -229,6 +250,7 @@ process group; a rank that fails or hangs fails the run.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import os
@@ -243,6 +265,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM data sheet
+INT8_OPS = 1979e12  # dense int8 tensor-core peak, H100 SXM data sheet
 FP32_FMAS = 33.5e12  # 67 TFLOP/s fp32 on the CUDA cores, H100 SXM data sheet
 K3_ATOL = 2e-2
 K3_RTOL = 2e-2
@@ -4392,7 +4415,534 @@ def phase_nccl_path(card: str, work_dir: str, cache: dict) -> dict:
     return {"launches": result["launches"], "per_rank": [result["launches"]]}
 
 
-RANK_PHASES = {"dp_cache": rank_dp_cache, "dp_train": rank_dp_train, "nccl": rank_nccl}
+# ---- int8 quantisation (models/quant.py) and module sharding ---------------------
+
+W8A16_REL = 2.0**-7
+# A W8A16 product (bf16 activations, int8 weights cast to bf16, fp32 sums,
+# the scale, a bf16 output) against the fp32 product of the same
+# activations and the dequantised weight with TF32 off: max |diff| <=
+# 2^-7 * max |fp32|.  The output's bf16 rounding is at most 2^-8 of each
+# value; the fp32 sums of exact products differ only in their order.
+QBWD_REL = 2.0**-7
+# The quantised products' backward, dx = (g * scale) @ q8 with bf16
+# operands and fp32 sums, returned in the activations' dtype (bf16), against
+# the fp32 product of the same bf16-rounded g * scale and q8 with TF32 off:
+# max |diff| <= 2^-7 * max |fp32|.  The products are exact on both sides and
+# the sums differ only in their order; the bf16 result is within 2^-8 of
+# each value.
+INT8_CACHE_BATCHES, INT8_CACHE_SPLITS = 2, 16
+INT8_GENERATE_NEW, INT8_PROMPT = 16, 74
+
+
+def _cpu_quantized_equal(card_leaf: dict, host_dense: torch.Tensor, dim: int) -> bool:
+    """A leaf quantised on the card against the same dense weight quantised
+    on the host: q8 and scale equal bit for bit."""
+    from multimodal_sae_tpu_torch.models.quant import quantize_weight
+
+    want = quantize_weight(host_dense, dim=dim)
+    return (torch.equal(card_leaf["q8"].cpu(), want["q8"])
+            and torch.equal(card_leaf["scale"].cpu().view(torch.int32), want["scale"].view(torch.int32)))
+
+
+def check_qmatmul(x: torch.Tensor, w: dict) -> dict:
+    """Both quantised products at one layer's shapes against their plain
+    versions on the card: W8A8's int32 sums equal to a float64 product of
+    the same int8 operands (exact: |sum| < 2^53), at the layer's rows and at
+    padded ones (1, 16 and 64 decode rows; k = 588 of CLIP-L/336's patch
+    embedding); W8A16 within W8A16_REL of the fp32 product with the
+    dequantised weight; both modes' backward within QBWD_REL of its plain
+    version.  Each forward timed beside the bf16 product with the
+    dequantised weight."""
+    import torch.nn.functional as F
+
+    from multimodal_sae_tpu_torch.models.quant import dequantize_weight, int8_mm, qmatmul, quantize_rows
+
+    def exact(xq, q8):
+        got = int8_mm(xq, q8)
+        plain = (xq.double() @ q8.double().t()).to(torch.int64)
+        if got.dtype != torch.int32 or not torch.equal(got.to(torch.int64), plain):
+            raise AssertionError(f"W8A8 int32 sums differ from the plain product at {tuple(xq.shape)} x "
+                                 f"{tuple(q8.shape)}")
+        return tuple(xq.shape), tuple(q8.shape)
+
+    xq, _ = quantize_rows(x)
+    shapes = [exact(xq, w["q8"])] + [exact(xq[:m], w["q8"]) for m in (1, 16, 64)]
+    gen = torch.Generator(device=x.device).manual_seed(5)
+    patch_w = {"q8": torch.randint(-127, 128, (1024, 588), generator=gen, device=x.device, dtype=torch.int8)}
+    patch_x = torch.randint(-127, 128, (3, 588), generator=gen, device=x.device, dtype=torch.int8)
+    shapes.append(exact(patch_x, patch_w["q8"]))
+    out = qmatmul(x, w)
+    ref = x.float() @ dequantize_weight(w).t()
+    rel = ((out.float() - ref).abs().max() / ref.abs().max()).item()
+    if not rel <= W8A16_REL:
+        raise AssertionError(f"W8A16 off the fp32 product by {rel} of its largest value")
+    del out, ref
+    bwd_rel = {}
+    g = torch.randn((x.shape[0], w["q8"].shape[0]), generator=gen, device=x.device).to(x.dtype)
+    for mode, int8 in (("w8a8", True), ("w8a16", False)):
+        xg = x.detach().requires_grad_(True)
+        (grad,) = torch.autograd.grad(qmatmul(xg, w, int8=int8), xg, g)
+        plain = (g.float() * w["scale"]).to(torch.bfloat16).float() @ w["q8"].float()
+        bwd_rel[mode] = ((grad.float() - plain).abs().max() / plain.abs().max()).item()
+        if not bwd_rel[mode] <= QBWD_REL:
+            raise AssertionError(f"{mode} backward off its plain version by {bwd_rel[mode]} of its largest value")
+        del grad, plain
+    dense = dequantize_weight(w, dtype=torch.bfloat16)
+    M, K = x.shape
+    N = w["q8"].shape[0]
+    return {"x": [M, K], "w": [N, K], "w8a8_exact_shapes": shapes, "w8a16_max_rel": rel,
+            "w8a16_rel_bound": W8A16_REL, "backward_max_rel": bwd_rel, "backward_rel_bound": QBWD_REL,
+            "ms": {"w8a8": time_ms(lambda: qmatmul(x, w, int8=True)), "w8a16": time_ms(lambda: qmatmul(x, w)),
+                   "bf16": time_ms(lambda: F.linear(x, dense)), "int_mm_only": time_ms(lambda: int8_mm(xq, w["q8"]))},
+            "bound_ms": {"int8": 2 * M * K * N / INT8_OPS * 1e3, "bf16": 2 * M * K * N / BF16_FLOPS * 1e3}}
+
+
+def _split_keys(module_dir: str, rows: int, ctx_len: int, width: int) -> np.ndarray:
+    """The (row, position, feature) triples of a merged cache's rows below
+    `rows`, as sorted int64 keys."""
+    locs, _ = check_splits(module_dir, len([f for f in os.listdir(module_dir) if f.endswith(".safetensors")]), width)
+    locs = locs[locs[:, 0] < rows].astype(np.int64)
+    return np.sort((locs[:, 0] * ctx_len + locs[:, 1]) * width + locs[:, 2])
+
+
+def phase_int8_cache_path(dev, card: str, cache: dict) -> dict:
+    """The text cache with an int8 subject: cache_path's subject (25 layers
+    at LLaMA-3-8B widths, seed 0) quantised on the card leaf by leaf
+    (`quantize_llama_params`), then 2 of cache_path's batches of 8 x 2,048
+    ids through `FeatureCache` in three modes: W8A16, W8A8 (`int8_matmul`)
+    and W8A8 with the SAE encoder quantised (`load_saes(int8_encoder=True)`,
+    the CLI's `--sae_int8`).  Checks: the quantised leaves of layer 0, the
+    last layer's o_proj and the embedding equal a host quantisation of the
+    same weights bit for bit; `check_qmatmul` at layer 0's gate_proj; the
+    splits valid and the launches counted.  Reports the weight bytes,
+    tokens/s, the encode's ms and the peak per mode, the hidden state's
+    relative error at layers.24 against the bf16 subject and the cached
+    entries shared with cache_path's splits (not gated)."""
+    from multimodal_sae_tpu_torch.features import FeatureCache
+    from multimodal_sae_tpu_torch.interp_utils import load_saes
+    from multimodal_sae_tpu_torch.models.llama import LlamaConfig, LlamaModel
+    from multimodal_sae_tpu_torch.models.quant import LLAMA_QUANT_KEYS, leaf_bytes, quantize_llama_params
+    from multimodal_sae_tpu_torch.ops import top_k
+    from multimodal_sae_tpu_torch.sae import pre_acts
+
+    t_phase = time.perf_counter()
+    hook, batch_size, ctx_len, width = cache["hook"], 8, 2048, 131072
+    n_rows = INT8_CACHE_BATCHES * batch_size
+    cfg = LlamaConfig(num_hidden_layers=25, flash_attention=True)
+    model = LlamaModel.random(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    rows = [{"input_ids": ids} for ids in cache["tokens"][:n_rows]]
+    batch0 = {"input_ids": np.stack([r["input_ids"] for r in rows[:batch_size]])}
+    h_bf16 = model.capture(batch0, [hook])[hook]
+    bytes_bf16 = leaf_bytes(model.params)
+    host = {"embed_tokens": model.params["embed_tokens"].cpu(), "layers.24.o_proj": model.params["layers"][24]["o_proj"].cpu(),
+            **{f"layers.0.{k}": t.cpu() for k, t in model.params["layers"][0].items() if k in LLAMA_QUANT_KEYS}}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    quantize_llama_params(model.params)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    bytes_int8 = leaf_bytes(model.params)
+    layers = model.params["layers"]
+    card_leaf = {"embed_tokens": model.params["embed_tokens"], "layers.24.o_proj": layers[24]["o_proj"],
+                 **{f"layers.0.{k}": layers[0][k] for k in LLAMA_QUANT_KEYS if k in layers[0]}}
+    unequal = [name for name, t in host.items()
+               if not _cpu_quantized_equal(card_leaf[name], t, dim=0 if name == "embed_tokens" else 1)]
+    if unequal:
+        raise AssertionError(f"leaves quantised on the card differ from the host's: {unequal}")
+    del host
+    x0 = model.capture(batch0, ["layers.0"])["layers.0"].reshape(-1, cfg.hidden_size)
+    products = check_qmatmul(x0, layers[0]["gate_proj"])
+    del x0
+    torch.cuda.empty_cache()
+
+    base_keys = _split_keys(os.path.join(cache["cache_dir"], hook), n_rows, ctx_len, width)
+    modes = {}
+    launches_total = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_int8_") as tmp:
+        for mode, int8_matmul, sae_int8 in (("w8a16", False, False), ("w8a8", True, False),
+                                           ("w8a8_sae_int8", True, True)):
+            model.cfg = dataclasses.replace(cfg, int8_matmul=int8_matmul)
+            saes = load_saes(cache["sae_dir"], device=dev, int8_encoder=sae_int8)
+            sae = saes[hook]
+            h = model.capture(batch0, [hook])[hook]  # warm-up, then the stages of batch 0
+            top_k(pre_acts(sae.params, h.reshape(-1, h.shape[-1])), sae.cfg.k, assume_finite=True)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            h = model.capture(batch0, [hook])[hook]
+            ev[1].record()
+            latents = pre_acts(sae.params, h.reshape(-1, h.shape[-1]))
+            ev[2].record()
+            top_k(latents, sae.cfg.k, assume_finite=True)
+            ev[3].record()
+            torch.cuda.synchronize()
+            hidden_rel = (torch.linalg.vector_norm((h - h_bf16).float())
+                          / torch.linalg.vector_norm(h_bf16.float())).item()
+            del h, latents
+            save_dir = os.path.join(tmp, mode)
+            fc = FeatureCache(lambda b: model.capture(b, [hook]), saes, batch_size=batch_size)
+            fc.enable_streaming(save_dir, n_splits=INT8_CACHE_SPLITS)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            gc.collect()
+            reset_kernel_counts()
+            t0 = time.perf_counter()
+            fc.run(ctx_len, rows, progress=False)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            launches = kernel_counts()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            expected = {"block_max": 2 * INT8_CACHE_BATCHES, "flash_attention": 25 * INT8_CACHE_BATCHES}
+            if {k: launches[k] for k in expected} != expected or sum(launches.values()) != sum(expected.values()):
+                raise AssertionError(f"{mode}: launches {launches}, expected {expected}")
+            for name, n in launches.items():
+                launches_total[name] = launches_total.get(name, 0) + n
+            fc.save_splits(INT8_CACHE_SPLITS, save_dir)
+            fc.concate_safetensors(INT8_CACHE_SPLITS, save_dir)
+            keys = _split_keys(os.path.join(save_dir, hook), n_rows, ctx_len, width)
+            modes[mode] = {
+                "tokens_per_s": n_rows * ctx_len / run_s, "run_s": run_s, "peak_gb": peak_gb,
+                "stage_ms_batch0": {"subject_forward": ev[0].elapsed_time(ev[1]), "encode": ev[1].elapsed_time(ev[2]),
+                                    "top_k": ev[2].elapsed_time(ev[3])},
+                "hidden_rel_l2_vs_bf16": hidden_rel, "entries": len(keys),
+                "entries_shared_with_cache_path": float(len(np.intersect1d(keys, base_keys, assume_unique=True))
+                                                        / len(base_keys)),
+                "launches": launches,
+            }
+            del fc, saes, sae
+            gc.collect()
+            torch.cuda.empty_cache()
+    emit({
+        "phase": "int8_cache_path", "subject": "LLaMA-3-8B widths, 25 layers, quantised on the card (int8 "
+        "projections, LM head and embedding; bf16 norms), flash attention", "hookpoint": hook,
+        "sae": "4096 -> 131072 latents, k=256 (fp32, or its encoder int8 in w8a8_sae_int8)",
+        "batches": INT8_CACHE_BATCHES, "batch_size": batch_size, "ctx_len": ctx_len,
+        "weight_bytes": {"bf16": bytes_bf16, "int8": bytes_int8}, "quantize_s": quantize_s,
+        "host_quantisation_equal": sorted(card_leaf), "products": products, "modes": modes,
+        "seconds": time.perf_counter() - t_phase, "card": card,
+    })
+    return {"launches": launches_total}
+
+
+def phase_int8_subject_path(dev, card: str) -> dict:
+    """The whole subject in int8: the attribution phase's subject (32 layers
+    and the LM head at LLaMA-3-8B widths, seed 0) and SAE (layers.24,
+    131,072 latents, k = 256, seed 0), first in bf16 and then quantised on
+    the card with W8A8 products: one `fast_attribution_maps` call on the
+    2,432-token prompt (16 features at feature_batch 8: K2's splice and K3's
+    backward through the straight-through products) and a 16-token greedy
+    generate at batch 1 (its decode steps take the padded `_int_mm` rows).
+    Checks the launches, finite saliency and tokens in the vocabulary;
+    reports features/s, the peak, the subject's bytes, each feature's
+    saliency correlation with the bf16 subject's and the tokens both
+    generate alike (not gated)."""
+    from functools import partial
+
+    from multimodal_sae_tpu_torch.config import SaeConfig
+    from multimodal_sae_tpu_torch.features.patching import build_fast_attribution, fast_attribution_maps, get_logit_diff
+    from multimodal_sae_tpu_torch.models.llama import LlamaConfig, LlamaModel
+    from multimodal_sae_tpu_torch.models.quant import leaf_bytes, quantize_llama_params
+    from multimodal_sae_tpu_torch.sae import Sae
+
+    t_phase = time.perf_counter()
+    hook, S, fb, width, n_suffix = "layers.24", 2432, 8, 131072, 32 - 25
+    cfg = LlamaConfig(flash_attention=True)
+    model = LlamaModel.random(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    sae = Sae(4096, SaeConfig(num_latents=width, k=256), decoder=True, seed=0, device=dev)
+    rng = np.random.default_rng(1)
+    batch = {"input_ids": rng.integers(0, cfg.vocab_size, size=(1, S))}
+    metric = partial(get_logit_diff, answer_token_indices=torch.tensor([[1000, 2000]], device=dev))
+    step = build_fast_attribution(model, hook, sae, batch, metric)
+    inside = step.wide_idx[-1, :8].long().tolist()
+    in_pool = torch.zeros(width, dtype=torch.bool, device=dev)
+    in_pool[step.wide_idx.long().reshape(-1)] = True
+    outside = sorted(rng.choice(torch.nonzero(~in_pool).squeeze(1).cpu().numpy(), size=8, replace=False).tolist())
+    feats = inside + outside
+    del step, in_pool
+    prompt = {"input_ids": rng.integers(0, cfg.vocab_size, size=(1, INT8_PROMPT))}
+
+    def attribute():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        gc.collect()
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        out = fast_attribution_maps(model, hook, sae, batch, metric, feats, feature_batch=fb, progress=False)
+        torch.cuda.synchronize()
+        return _saliency(out, hook), time.perf_counter() - t0, kernel_counts(), torch.cuda.max_memory_allocated() / 1e9
+
+    sal_bf16, bf16_s, _, bf16_peak = attribute()
+    gen_bf16, _ = _timed_generate(model, prompt, None, INT8_GENERATE_NEW)
+    bytes_bf16 = leaf_bytes(model.params)
+    t0 = time.perf_counter()
+    quantize_llama_params(model.params)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    model.cfg = dataclasses.replace(cfg, int8_matmul=True)
+    bytes_int8 = leaf_bytes(model.params)
+    attribute()  # warm-up of the int8 products
+    sal, run_s, launches, peak_gb = attribute()
+    chunks = len(feats) // fb
+    expected = {"block_max": 2, "flash_attention": 25 + n_suffix * chunks,
+                "flash_attention_bwd_delta": n_suffix * chunks, "flash_attention_bwd_dkdv": n_suffix * chunks,
+                "flash_attention_bwd_dq": n_suffix * chunks, "gather_rows": 1, "splice_decode": chunks,
+                "decode_dvals": 0}
+    if launches != expected:
+        raise AssertionError(f"int8 attribution launches {launches}, expected {expected}")
+    if sal.shape != (len(feats), 1, S) or not np.any(sal[:8] != 0):
+        raise AssertionError(f"int8 saliency of shape {sal.shape}, in-top-k features all 0: {not np.any(sal[:8])}")
+    # The last position dominates each map (its own gradient, not one
+    # through attention) and its saliency nets the feature's decoder row
+    # against the pool's (k+1)-th, which the quantised hidden state may
+    # change: reported apart.
+    corr, corr_before_last, last = [], [], []
+    for a, b in zip(sal_bf16[:, 0], sal[:, 0]):
+        corr.append(float(np.corrcoef(a, b)[0, 1]) if a.any() and b.any() else None)
+        corr_before_last.append(float(np.corrcoef(a[:-1], b[:-1])[0, 1]) if a[:-1].any() and b[:-1].any() else None)
+        last.append([float(a[-1]), float(b[-1])])
+    gen, gen_readings = _timed_generate(model, prompt, None, INT8_GENERATE_NEW)
+    tokens = gen[0, INT8_PROMPT:].cpu().numpy()
+    if gen.shape != (1, INT8_PROMPT + INT8_GENERATE_NEW) or not ((tokens >= 0) & (tokens < cfg.vocab_size)).all():
+        raise AssertionError(f"int8 generate gave {gen.shape}, tokens {tokens}")
+    if gen_readings["launches"]["prefill"]["flash_attention"] != 32:
+        raise AssertionError(f"int8 prefill launches {gen_readings['launches']}")
+    same = gen[0, INT8_PROMPT:] == gen_bf16[0, INT8_PROMPT:]
+    gen_launches = {k: gen_readings["launches"]["prefill"][k] + gen_readings["launches"]["decode"][k]
+                    for k in launches}
+    emit({
+        "phase": "int8_subject_path", "subject": "LLaMA-3-8B widths, 32 layers and the LM head, quantised on the "
+        "card, W8A8 products (int8_matmul), flash attention", "hookpoint": hook,
+        "sae": "4096 -> 131072 latents, k=256, fp32", "prompt_tokens": S, "features": len(feats),
+        "feature_batch": fb, "subject_bytes": {"bf16": bytes_bf16, "int8": bytes_int8}, "quantize_s": quantize_s,
+        "features_per_s": len(feats) / run_s, "run_s": run_s, "peak_gb": peak_gb,
+        "bf16": {"features_per_s": len(feats) / bf16_s, "peak_gb": bf16_peak},
+        "saliency_corr_vs_bf16": corr, "saliency_corr_vs_bf16_before_the_last_position": corr_before_last,
+        "last_position_saliency_bf16_int8": last, "launches": launches,
+        "generate": {**gen_readings, "tokens_equal_to_bf16": int(same.sum()),
+                     "leading_tokens_equal_to_bf16": int(torch.cumprod(same.int(), 0).sum())},
+        "seconds": time.perf_counter() - t_phase, "card": card,
+    })
+    return {"launches": {k: launches[k] + gen_launches[k] for k in launches}}
+
+
+def phase_int8_image_path(dev, card: str) -> dict:
+    """The image cache phase's subject (llama3-llava-next-8b widths, text
+    cut to 25 layers, seed 0) quantised on the card as `--load_in_8bit`
+    quantises it (the language model and the CLIP tower; W8A16), then with
+    the tower's products W8A8 (`--int8_vision`: the patch embedding's k =
+    588 padded to 592): one batch of 4 images of 480 x 640 each through
+    `FeatureImageCache`.  Checks the launches and the splits; reports
+    images/s, the tower's ms, the weight bytes and the two modes' hidden
+    states' relative difference at model.layers.24."""
+    from multimodal_sae_tpu_torch.config import SaeConfig
+    from multimodal_sae_tpu_torch.features import FeatureImageCache
+    from multimodal_sae_tpu_torch.models.clip_vit import clip_vision_forward
+    from multimodal_sae_tpu_torch.models.llama import LlamaConfig
+    from multimodal_sae_tpu_torch.models.llava_next import LlavaNextConfig, LlavaNextModel
+    from multimodal_sae_tpu_torch.models.quant import leaf_bytes, quantize_clip_params, quantize_llama_params
+    from multimodal_sae_tpu_torch.sae import Sae
+
+    t_phase = time.perf_counter()
+    hook, batch_size, n_splits = "model.layers.24", 4, 16
+    cfg = LlavaNextConfig(text_config=LlamaConfig(vocab_size=128257, num_hidden_layers=25, flash_attention=True))
+    model = LlavaNextModel.random(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    bytes_bf16 = leaf_bytes(model.params)
+    quantize_llama_params(model.params["language_model"])
+    quantize_clip_params(model.params["vision_tower"])
+    bytes_int8 = leaf_bytes(model.params)
+    saes = {hook: Sae(4096, SaeConfig(num_latents=131072, k=256), decoder=False, seed=0, device=dev)}
+    batch = _image_batch(cfg, [UNIFORM_HW] * batch_size, np.random.default_rng(0))
+    positions = batch["input_ids"].size
+    pixels = torch.from_numpy(np.concatenate(batch["pixel_values"])).to(dev)
+    modes, hidden, launches_total = {}, {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_int8_image_") as tmp:
+        for mode, vision in (("load_in_8bit", False), ("int8_vision", True)):
+            model.cfg = dataclasses.replace(cfg, vision_config=dataclasses.replace(cfg.vision_config,
+                                                                                   int8_matmul=vision))
+            hidden[mode] = model.capture(batch, [hook])[hook]  # also the warm-up
+            tower_ms = time_ms(lambda: clip_vision_forward(model.params["vision_tower"], model.cfg.vision_config,
+                                                           pixels, feature_layer=cfg.vision_feature_layer), iters=5)
+            save_dir = os.path.join(tmp, mode)
+            fc = FeatureImageCache(lambda b: model.capture(b, [hook]), saes, batch_size=batch_size)
+            fc.enable_streaming(save_dir, n_splits=n_splits)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            gc.collect()
+            reset_kernel_counts()
+            t0 = time.perf_counter()
+            fc.run(positions, iter([batch]), progress=False)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            launches = kernel_counts()
+            expected = {"block_max": 2, "flash_attention": 25}
+            if {k: launches[k] for k in expected} != expected or sum(launches.values()) != 27:
+                raise AssertionError(f"{mode}: launches {launches}, expected {expected}")
+            for name, n in launches.items():
+                launches_total[name] = launches_total.get(name, 0) + n
+            fc.save_splits(n_splits, save_dir)
+            fc.concate_safetensors(n_splits, save_dir)
+            _, acts = check_splits(os.path.join(save_dir, hook), n_splits, 131072)
+            modes[mode] = {"images_per_s": batch_size / run_s, "run_s": run_s, "tower_ms": tower_ms,
+                           "tower_crops": int(pixels.shape[0]), "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                           "entries": len(acts), "launches": launches}
+            del fc
+    a, b = hidden["load_in_8bit"].float(), hidden["int8_vision"].float()
+    emit({
+        "phase": "int8_image_path", "subject": "llama3-llava-next-8b widths (text cut to 25 layers), quantised on "
+        "the card: the language model W8A16, the CLIP-L/336 tower W8A16 then W8A8", "hookpoint": hook,
+        "images": batch_size, "image_hw": list(UNIFORM_HW), "positions": positions,
+        "weight_bytes": {"bf16": bytes_bf16, "int8": bytes_int8}, "modes": modes,
+        "hidden_rel_l2_int8_vision_vs_w8a16_tower": (torch.linalg.vector_norm(b - a)
+                                                     / torch.linalg.vector_norm(a)).item(),
+        "seconds": time.perf_counter() - t_phase, "card": card,
+    })
+    return {"launches": launches_total}
+
+
+MS_LAYERS, MS_HOOKS = 4, ("layers.1", "layers.3")
+MS_UPDATE_REL = 1e-2
+# module_sharded_train_path: each rank's SAE against the world-1 run's on
+# the same global batches, per tensor ||ranks - solo|| <= 1e-2 * ||solo -
+# init||.  The ranks' subjects run 1 row where the solo run's runs 2, so
+# cuBLAS may sum the bf16 hidden states in another order: fp32 noise, which
+# Adam's first step (about lr * sign(g)) turns into a whole step of 2 * lr
+# on elements whose gradient is within that noise of 0 (DP_TRAIN_UPDATE_REL's
+# reasoning; no gradient crosses ranks here).
+
+
+def _ms_train_config(batch_size: int, run_name: str):
+    from multimodal_sae_tpu_torch.config import SaeConfig, TrainConfig
+
+    return TrainConfig(sae=SaeConfig(num_latents=131072, k=256), batch_size=batch_size, grad_acc_steps=2,
+                       micro_acc_steps=1, lr_warmup_steps=0, auxk_alpha=1 / 32, dead_feature_threshold=0,
+                       log_to_wandb=False, hookpoints=list(MS_HOOKS), distribute_modules=True, save_every=10**9,
+                       run_name=run_name)
+
+
+def rank_module_train(args: dict) -> dict:
+    """One rank of module_sharded_train_path: `SaeTrainer` with
+    `distribute_modules` on this rank's contiguous shard of the rows; the
+    rank trains its one hookpoint on the global batch that the all-to-all
+    brings it, then `save` (each rank its own SAE, rank 0 the shared files)."""
+    from multimodal_sae_tpu_torch.launch.utils import shard_info
+    from multimodal_sae_tpu_torch.models.llama import LlamaConfig, LlamaModel
+    from multimodal_sae_tpu_torch.parallel import shard_dataset_contiguous
+    from multimodal_sae_tpu_torch.parallel.collectives import staging_route
+    from multimodal_sae_tpu_torch.train import SaeTrainer
+    from multimodal_sae_tpu_torch.train.trainer import _iter_batches
+
+    dev = torch.device("cuda")
+    rank, world = shard_info()
+    cfg = LlamaConfig(num_hidden_layers=MS_LAYERS, flash_attention=True)
+    model = LlamaModel.random(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    shard, _ = shard_dataset_contiguous(_dp_train_rows(cfg.vocab_size), world, rank)
+    trainer = SaeTrainer(_ms_train_config(DP_TRAIN_ROWS, args["run_dir"]), shard, model, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    gc.collect()
+    reset_kernel_counts()
+    steps = []
+    for i, batch in enumerate(_iter_batches(shard, DP_TRAIN_ROWS)):
+        if i == 1:
+            torch.cuda.synchronize()
+            t_steady = time.perf_counter()
+        marks = StageMarks()
+        trainer.step(batch, mark=marks)
+        steps.append(marks.ms())
+    torch.cuda.synchronize()
+    steady_s = time.perf_counter() - t_steady
+    launches = kernel_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    trainer.save()
+    return {"rank": rank, "hooks": list(trainer.saes), "route": staging_route(dev),
+            "tokens_per_s": (len(steps) - 1) * DP_TRAIN_ROWS * 2048 / steady_s,
+            "exchange_ms": [round(m["exchange"], 3) for m in steps], "step_ms": [round(m["total"], 3) for m in steps],
+            "peak_gb": peak_gb, "launches": launches, "save_s": time.perf_counter() - t0}
+
+
+def phase_module_sharded_train_path(dev, card: str, work_dir: str) -> dict:
+    """Module-sharded `SaeTrainer` (`distribute_modules`) as two gloo ranks
+    sharing the card, one hookpoint each (layers.1 on rank 0, layers.3 on
+    rank 1), the full-width SAE with AuxK, against one process training
+    both hookpoints with the flag at world 1 on the same global batches:
+    each hookpoint's parameters within MS_UPDATE_REL, `opt_step` equal; the
+    counters' relation (each rank counts its own ids, so doubled they equal
+    the world-1 run's where the fired masks agree) is reported."""
+    from multimodal_sae_tpu_torch.models.llama import LlamaConfig, LlamaModel
+    from multimodal_sae_tpu_torch.sae import Sae
+    from multimodal_sae_tpu_torch.train import SaeTrainer
+    from multimodal_sae_tpu_torch.train.trainer import _iter_batches
+    from multimodal_sae_tpu_torch.utils.safetensors_io import load_file
+
+    t_phase = time.perf_counter()
+    B, n = DP_TRAIN_ROWS, DP_TRAIN_BATCHES
+    cfg = LlamaConfig(num_hidden_layers=MS_LAYERS, flash_attention=True)
+    model = LlamaModel.random(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    rows = _dp_train_rows(cfg.vocab_size)
+    order = [r * B * n + s * B + i for s in range(n) for r in range(DP_WORLD) for i in range(B)]
+    solo_rows = [rows[j] for j in order]
+    trainer = SaeTrainer(_ms_train_config(DP_WORLD * B, os.path.join(work_dir, "ms_solo")), solo_rows, model,
+                         device=dev)
+    init = {hook: {name: t.detach().cpu().clone() for name, t in trainer.saes[hook].params.items()}
+            for hook in MS_HOOKS}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for batch in _iter_batches(solo_rows, DP_WORLD * B):
+        trainer.step(batch)
+    torch.cuda.synchronize()
+    solo_s = time.perf_counter() - t0
+    solo = {hook: {name: t.detach().cpu() for name, t in trainer.saes[hook].params.items()} for hook in MS_HOOKS}
+    solo_counts = {hook: trainer.num_tokens_since_fired[hook].copy() for hook in MS_HOOKS}
+    solo_opt_step, solo_peak_gb = trainer.opt_step, torch.cuda.max_memory_allocated() / 1e9
+    del trainer, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    run_dir = os.path.join(work_dir, "ms_run")
+    results, card_peak_gb = spawn_ranks("module_train", {"run_dir": run_dir}, DP_WORLD)
+    if [r["hooks"] for r in results] != [[hook] for hook in MS_HOOKS]:
+        raise AssertionError(f"ranks trained {[r['hooks'] for r in results]}")
+    with open(os.path.join(run_dir, "state.json")) as f:
+        state = json.load(f)
+    if state["opt_step"] != solo_opt_step or state["global_step"] != n:
+        raise AssertionError(f"steps {state} against solo opt_step {solo_opt_step}")
+    state_counts = load_file(os.path.join(run_dir, "state.safetensors"))
+    rel, max_abs, counters = {}, {}, {}
+    for hook in MS_HOOKS:
+        got = Sae.load_from_disk(os.path.join(run_dir, hook), device="cpu").params
+        rel[hook], max_abs[hook] = {}, {}
+        for name, want in solo[hook].items():
+            step = torch.linalg.vector_norm((want - init[hook][name]).double()).item()
+            rel[hook][name] = torch.linalg.vector_norm((got[name] - want).double()).item() / max(step, 1e-30)
+            max_abs[hook][name] = (got[name] - want).abs().max().item()
+        counts = state_counts[f"num_tokens_since_fired/{hook}"].numpy()
+        counters[hook] = int((counts * DP_WORLD != solo_counts[hook]).sum())
+    if not all(v <= MS_UPDATE_REL for per_hook in rel.values() for v in per_hook.values()):
+        raise AssertionError(f"module-sharded parameters off the world-1 run's: {rel}")
+    expected = {"block_max": 2 * n, "flash_attention": MS_LAYERS * n}
+    for r in results:
+        if {k: r["launches"][k] for k in expected} != expected:
+            raise AssertionError(f"rank {r['rank']} launched {r['launches']}, expected {expected}")
+    hidden_mb = B * 2048 * 4096 * 2 / 1e6
+    emit({
+        "phase": "module_sharded_train_path", "world": DP_WORLD, "backend": "gloo (two ranks on one card)",
+        "exchange_route": results[0]["route"], "exchange_mb_a_hookpoint_a_rank": hidden_mb,
+        "subject": f"LLaMA-3-8B widths cut to {MS_LAYERS} layers, bf16, flash attention",
+        "hookpoints": list(MS_HOOKS), "sae": "4096 -> 131072 latents, k=256, fp32, AuxK 1/32, dead threshold 0",
+        "rows_a_rank_a_batch": B, "ctx_len": 2048, "batches": n, "grad_acc_steps": 2,
+        "update_rel_l2": rel, "update_rel_bound": MS_UPDATE_REL, "max_abs_diff": max_abs,
+        "opt_step": state["opt_step"], "counters_differing_from_doubled": counters,
+        "ranks": results, "card_peak_gb_nvidia_smi": card_peak_gb,
+        "solo": {"tokens_per_s": n * DP_WORLD * B * 2048 / solo_s, "peak_gb": solo_peak_gb},
+        "seconds": time.perf_counter() - t_phase, "card": card,
+    })
+    names = ("block_max", "flash_attention", "flash_attention_bwd_delta", "flash_attention_bwd_dkdv",
+             "flash_attention_bwd_dq", "gather_rows", "splice_decode", "decode_dvals")
+    return {"launches": {name: sum(r["launches"][name] for r in results) for name in names},
+            "per_rank": [r["launches"] for r in results]}
+
+
+RANK_PHASES = {"dp_cache": rank_dp_cache, "dp_train": rank_dp_train, "nccl": rank_nccl,
+               "module_train": rank_module_train}
 
 
 def rank_main(phase: str, args: dict) -> int:
@@ -4441,6 +4991,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         dp_cache = phase_dp_cache_path(card, work_dir, cache)
         nccl = phase_nccl_path(card, work_dir, cache)
+        int8_cache = phase_int8_cache_path(dev, card, cache)
+        gc.collect()
+        torch.cuda.empty_cache()
         loaded = phase_loader_path(card, cache.pop("cache_dir"), cache.pop("hook"), cache.pop("tokens"))
         explained = phase_explain_score_path(card, loaded["records"], work_dir)
     # The stats phase needs only each record's feature: drop the examples
@@ -4460,11 +5013,17 @@ def main() -> int:
     del loaded
     gc.collect()
     torch.cuda.empty_cache()
+    int8_subject = phase_int8_subject_path(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
     train = phase_train_path(dev, card)
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work_dir:
         dp_train = phase_dp_train_path(dev, card, work_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        module_train = phase_module_sharded_train_path(dev, card, work_dir)
     gc.collect()
     torch.cuda.empty_cache()
     image = phase_image_cache_path(dev, card)
@@ -4481,13 +5040,20 @@ def main() -> int:
     k3_image_attribution = [check_flash_chain(dev, 8, image_attribution["S"], seed=12),
                             check_flash_chain(dev, 8, image_attribution["S2"], image_attribution["pads"], seed=13)]
     emit({"phase": "flash_attention_image_attribution", "shapes": k3_image_attribution})
+    int8_image = phase_int8_image_path(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
     clip = phase_clip_path(dev, card)
-    runs = (cache["launches"], dp_cache["launches"], nccl["launches"], loader_launches, explained["launches"],
-            attribution["launches"], general["launches"], stats["launches"], steering["launches"], train["launches"],
-            dp_train["launches"], image["launches"], image_train["launches"], image_steering["launches"],
-            image_attribution["launches"], clip["launches"])
+    runs = (cache["launches"], dp_cache["launches"], nccl["launches"], int8_cache["launches"], loader_launches,
+            explained["launches"], attribution["launches"], general["launches"], stats["launches"],
+            steering["launches"], int8_subject["launches"], train["launches"], dp_train["launches"],
+            module_train["launches"], image["launches"], image_train["launches"], image_steering["launches"],
+            image_attribution["launches"], int8_image["launches"], clip["launches"])
     per_rank = {phase: [{name: counts[name] for name in ("block_max", "flash_attention")} for counts in run["per_rank"]]
-                for phase, run in (("dp_cache_path", dp_cache), ("nccl_path", nccl), ("dp_train_path", dp_train))}
+                for phase, run in (("dp_cache_path", dp_cache), ("nccl_path", nccl), ("dp_train_path", dp_train),
+                                   ("module_sharded_train_path", module_train))}
+    new_phases = {"int8_cache_path": int8_cache, "int8_subject_path": int8_subject,
+                  "module_sharded_train_path": module_train, "int8_image_path": int8_image}
     total = {name: sum(run[name] for run in runs) for name in runs[0]}
     k2, splice, dvals = attribution["k2"], attribution["splice"], train["dvals"]
     bwd_launches = {part: total[f"flash_attention_bwd_{part}"] for part in ("delta", "dkdv", "dq")}
@@ -4549,6 +5115,12 @@ def main() -> int:
                           "plain_ms": general["dvals"]["plain_ms"], "bound_ms": general["dvals"]["bound_ms"],
                           "bound_by": general["dvals"]["bound_by"], "library_ms": None}},
     ]}
+    parts = {"flash_attention_bwd": ("flash_attention_bwd_delta", "flash_attention_bwd_dkdv",
+                                     "flash_attention_bwd_dq")}
+    for entry in kernels_line["kernels"]:
+        names = parts.get(entry["name"], (entry["name"],))
+        entry["launches_in_int8_and_module_sharded_phases"] = {
+            phase: sum(run["launches"][name] for name in names) for phase, run in new_phases.items()}
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit(kernels_line)
     print(card_line(), flush=True)

@@ -13,9 +13,11 @@ through `DataCollatorForImage`).  One process trains on the CUDA card;
 `run(device=...)` names another device (the tests pass "cpu").  Under
 `torchrun --nproc_per_node N` each rank drives one card: the dataset is
 cut to a length N divides and each rank trains on its contiguous shard,
-data-parallel (`SaeTrainer`).  --tp, --dp, --load_in_8bit, --int8_* and
---distribute_modules are refused until their slices are ported
-(ROADMAP.md §1)."""
+data-parallel (`SaeTrainer`), or with `--distribute_modules` each rank
+trains its block of the hookpoints on the whole global batch
+(train/module_sharded.py).  `--load_in_8bit`, `--int8_matmul` and
+`--int8_vision` quantise the subject (models/quant.py).  --tp and --dp
+are refused until their slices are ported (ROADMAP.md §1)."""
 
 from __future__ import annotations
 

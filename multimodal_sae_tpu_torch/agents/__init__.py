@@ -1,6 +1,5 @@
-"""Explainers and scorers of the interpretation layer (multimodal_sae_tpu/agents).
-The segment scorer is not ported yet (ROADMAP.md §1, item 5).
-"""
+"""Explainers and scorers of the interpretation layer (multimodal_sae_tpu/agents),
+the segment scorer among them."""
 
 from .explainers import (
     Explainer,
@@ -14,6 +13,8 @@ from .scorers import (
     ClipScorer,
     GeneratedClipScorer,
     LabelRefiner,
+    RandomSegmentScorer,
+    SegmentScorer,
     SimpleScorer,
     SimpleScorerResult,
 )
@@ -27,6 +28,8 @@ __all__ = [
     "random_explanation_loader",
     "SimpleScorer",
     "SimpleScorerResult",
+    "SegmentScorer",
+    "RandomSegmentScorer",
     "LabelRefiner",
     "ClipScorer",
     "GeneratedClipScorer",

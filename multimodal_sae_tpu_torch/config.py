@@ -5,10 +5,10 @@ Field-for-field copies of `multimodal_sae_tpu.config.SaeConfig`,
 `TrainConfig`, `RunConfig`, `ExperimentConfig`, `FeatureConfig`,
 `CacheConfig` and `AttributionConfig` (same names, defaults and order), so
 `cfg.json` and `config.json` files and CLI flags are interchangeable
-between the two packages.  Options whose paths a later slice ports (int8,
-tensor and data parallelism, module distribution) and the one the port
-leaves out (rematerialisation) are accepted here and refused by the entry
-points that would need them.
+between the two packages.  Options whose paths a later slice ports
+(tensor parallelism and the in-process data-parallel replicas) and the one
+the port leaves out (rematerialisation) are accepted here and refused by
+the entry points that would need them.
 """
 
 from __future__ import annotations
@@ -106,7 +106,8 @@ class TrainConfig:
     """Stride between layers to train SAEs on."""
 
     distribute_modules: bool = False
-    """One SAE copy per device group (not in this slice of the port)."""
+    """Shard the hookpoints over the ranks: each rank trains its own block
+    of them on the whole global batch (train/module_sharded.py)."""
 
     save_every: int = 1000
     """Save SAEs every `save_every` optimizer steps."""
@@ -147,13 +148,14 @@ class RunConfig(TrainConfig):
     """Huggingface API token for downloading models."""
 
     load_in_8bit: bool = False
-    """Load the subject in reduced precision (not in this slice of the port)."""
+    """Quantise the subject to int8 (models/quant.py; W8A16 products)."""
 
     int8_matmul: bool = False
-    """W8A8 subject matmuls (not in this slice of the port)."""
+    """W8A8 products for the quantised subject's language model (implies
+    load_in_8bit)."""
 
     int8_vision: bool = False
-    """W8A8 CLIP tower (not in this slice of the port)."""
+    """W8A8 products for the quantised CLIP tower."""
 
     flash_attention: bool = False
     """Run the subject's attention through the causal flash-attention kernel."""
@@ -272,13 +274,14 @@ class CacheConfig:
     """Number of sequences to process in a batch."""
 
     load_in_8bit: bool = False
-    """Load the model in reduced precision (not in this slice of the port)."""
+    """Quantise the subject to int8 (models/quant.py; W8A16 products)."""
 
     int8_matmul: bool = False
-    """W8A8 subject matmuls (not in this slice of the port)."""
+    """W8A8 products for the quantised subject's language model (implies
+    load_in_8bit)."""
 
     int8_vision: bool = False
-    """W8A8 CLIP tower (not in this slice of the port)."""
+    """W8A8 products for the quantised CLIP tower."""
 
     flash_attention: bool = False
     """Run the subject's attention through the causal flash-attention kernel
@@ -310,7 +313,8 @@ class CacheConfig:
     """Json file mapping hookpoint -> list of feature indices to keep."""
 
     sae_int8: bool = False
-    """int8 SAE encoder (not in this slice of the port)."""
+    """Quantise each SAE encoder to int8 and encode W8A8 (moves top-k ties;
+    sae/model.py `quantize_encoder`)."""
 
     tp: int = 0
     """Tensor-parallel degree (not in this slice of the port)."""
@@ -341,10 +345,11 @@ class AttributionConfig:
     """Save dir for attribution results."""
 
     int8_matmul: bool = False
-    """W8A8 subject matmuls (not in this slice of the port; refused)."""
+    """W8A8 products for the quantised subject's language model (implies
+    load_in_8bit)."""
 
     int8_vision: bool = False
-    """W8A8 CLIP tower (not in this slice of the port; refused)."""
+    """W8A8 products for the quantised CLIP tower."""
 
     flash_attention: bool = False
     """Run the subject's attention forward and backward through the flash
@@ -355,8 +360,8 @@ class AttributionConfig:
     the suffix backward keeps its activations, which fit one card)."""
 
     load_in_8bit: bool = False
-    """Load the model in reduced precision (not in this slice of the port;
-    refused)."""
+    """Quantise the subject to int8 (models/quant.py); the backward takes
+    the quantised products' straight-through gradient."""
 
     tp: int = 0
     """Tensor-parallel degree (not in this slice of the port; refused above

@@ -10,6 +10,11 @@ state as `leaf_{i}` arrays in `jax.tree_util.tree_flatten` order; the port's
 states (ops/adam.py `AdamState`, ops/adam8bit.py `ScaleByAdam8bitState`)
 flatten in the same order, so the arrays cross one for one.  CLIP and
 LLaVA-NeXT: matrices are (in, out) there and (out, in) here, as for LLaMA.
+
+Quantised leaves (models/quant.py) cross as {"q8", "scale"} dicts: a
+matrix's `q8` is transposed like the matrix, so its scale runs over the
+port's rows, and an embedding table's `q8` stays (V, d) with its (d,)
+scale; the SAE's quantised W_enc crosses from (d_in, L) to (L, d_in).
 """
 
 from __future__ import annotations
@@ -47,14 +52,39 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+def _is_quantized(a) -> bool:
+    return isinstance(a, Mapping) and "q8" in a
+
+
+def _leaf_from_jax(a, transpose: bool, device: DeviceLike = None):
+    """One JAX leaf, dense or quantised, -> the port's, transposed when it
+    is a matrix the port keeps (out, in)."""
+    if _is_quantized(a):
+        q8 = np.asarray(a["q8"])
+        return {"q8": tensor_from_numpy(q8.T if transpose else q8, device),
+                "scale": tensor_from_numpy(a["scale"], device)}
+    a = np.asarray(a)
+    return tensor_from_numpy(a.T if transpose else a, device)
+
+
+def _leaf_to_jax(t, transpose: bool):
+    """One port leaf, dense or quantised, -> numpy in the JAX layout."""
+    if _is_quantized(t):
+        q8 = tensor_to_numpy(t["q8"])
+        return {"q8": np.ascontiguousarray(q8.T) if transpose else q8, "scale": tensor_to_numpy(t["scale"])}
+    a = tensor_to_numpy(t)
+    return np.ascontiguousarray(a.T) if transpose else a
+
+
 def sae_params_from_jax(params: Mapping, device: DeviceLike = None) -> Dict[str, torch.Tensor]:
-    """The JAX SAE param dict -> the port's (same keys, same layouts)."""
-    return {name: tensor_from_numpy(params[name], device) for name in params}
+    """The JAX SAE param dict -> the port's (same keys, same layouts; a
+    quantised W_enc's q8 transposed to (L, d_in))."""
+    return {name: _leaf_from_jax(params[name], _is_quantized(params[name]), device) for name in params}
 
 
 def sae_params_to_jax(params: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """The port's SAE param dict -> numpy arrays in the JAX package's layout."""
-    return {name: tensor_to_numpy(t) for name, t in params.items()}
+    return {name: _leaf_to_jax(t, _is_quantized(t)) for name, t in params.items()}
 
 
 def llama_params_from_jax(params: Mapping, device: DeviceLike = None) -> dict:
@@ -64,21 +94,20 @@ def llama_params_from_jax(params: Mapping, device: DeviceLike = None) -> dict:
     as (V, D) when the tree has one (an untied head)."""
     layers = params["layers"]
     if isinstance(layers, Mapping):  # stacked: one leading layer axis
-        arrays = {name: np.asarray(a) for name, a in layers.items()}
-        n = next(iter(arrays.values())).shape[0]
-        layers = [{name: a[i] for name, a in arrays.items()} for i in range(n)]
+        def layer_slice(a, i):
+            return {k: np.asarray(v)[i] for k, v in a.items()} if _is_quantized(a) else np.asarray(a)[i]
 
-    def convert(name, a):
-        a = np.asarray(a)
-        return tensor_from_numpy(a.T if name in PROJECTIONS else a, device)
+        n = np.asarray(layers["input_layernorm"]).shape[0]
+        layers = [{name: layer_slice(a, i) for name, a in layers.items()} for i in range(n)]
 
     out = {
-        "embed_tokens": tensor_from_numpy(params["embed_tokens"], device),
+        "embed_tokens": _leaf_from_jax(params["embed_tokens"], False, device),
         "norm": tensor_from_numpy(params["norm"], device),
-        "layers": [{name: convert(name, a) for name, a in layer.items()} for layer in layers],
+        "layers": [{name: _leaf_from_jax(a, name in PROJECTIONS, device) for name, a in layer.items()}
+                   for layer in layers],
     }
     if "lm_head" in params:
-        out["lm_head"] = tensor_from_numpy(np.asarray(params["lm_head"]).T, device)
+        out["lm_head"] = _leaf_from_jax(params["lm_head"], True, device)
     return out
 
 
@@ -86,17 +115,14 @@ def llama_params_to_jax(params: Mapping) -> dict:
     """The port's LLaMA tree -> numpy arrays in the JAX package's per-layer
     layout, (in, out) projections and `lm_head` (D, V) when there is one."""
 
-    def convert(name, t):
-        a = tensor_to_numpy(t)
-        return np.ascontiguousarray(a.T) if name in PROJECTIONS else a
-
     out = {
-        "embed_tokens": tensor_to_numpy(params["embed_tokens"]),
+        "embed_tokens": _leaf_to_jax(params["embed_tokens"], False),
         "norm": tensor_to_numpy(params["norm"]),
-        "layers": [{name: convert(name, t) for name, t in layer.items()} for layer in params["layers"]],
+        "layers": [{name: _leaf_to_jax(t, name in PROJECTIONS) for name, t in layer.items()}
+                   for layer in params["layers"]],
     }
     if "lm_head" in params:
-        out["lm_head"] = np.ascontiguousarray(tensor_to_numpy(params["lm_head"]).T)
+        out["lm_head"] = _leaf_to_jax(params["lm_head"], True)
     return out
 
 
@@ -111,8 +137,7 @@ def clip_params_from_jax(params: Mapping, device: DeviceLike = None) -> dict:
     """A JAX CLIP tower tree -> the port's, matrices transposed to (out, in)."""
 
     def convert(name, a):
-        a = np.asarray(a)
-        return tensor_from_numpy(a.T if name in CLIP_MATRICES else a, device)
+        return _leaf_from_jax(a, name in CLIP_MATRICES, device)
 
     out = {name: convert(name, a) for name, a in params.items() if name != "layers"}
     out["layers"] = [{name: convert(name, a) for name, a in layer.items()} for layer in params["layers"]]
@@ -123,8 +148,7 @@ def clip_params_to_jax(params: Mapping) -> dict:
     """The port's CLIP tower tree -> numpy arrays in the JAX package's layout."""
 
     def convert(name, t):
-        a = tensor_to_numpy(t)
-        return np.ascontiguousarray(a.T) if name in CLIP_MATRICES else a
+        return _leaf_to_jax(t, name in CLIP_MATRICES)
 
     out = {name: convert(name, t) for name, t in params.items() if name != "layers"}
     out["layers"] = [{name: convert(name, t) for name, t in layer.items()} for layer in params["layers"]]

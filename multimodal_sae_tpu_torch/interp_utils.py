@@ -58,19 +58,26 @@ def load_saes(
     dtype: Optional[torch.dtype] = None,
     device: DeviceLike = None,
     decoder: bool = False,
+    int8_encoder: bool = False,
 ) -> Dict[str, Sae]:
     """One SAE per hookpoint from the local directory `sae_path`: the
     filter's hookpoints when a filter is given, else every subdirectory.
     The cache path never decodes, so decoders stay on disk unless
-    `decoder` (steering decodes)."""
+    `decoder` (steering decodes).  `int8_encoder` quantises each W_enc for
+    the W8A8 encode (`Sae.quantize_encoder`; it moves top-k ties)."""
     if not os.path.isdir(sae_path):
         raise FileNotFoundError(f"{sae_path} is not a local SAE directory")
     if filters is not None:
-        return {
+        saes = {
             name: Sae.load_from_disk(os.path.join(sae_path, name), dtype, decoder=decoder, device=device)
             for name in filters
         }
-    return Sae.load_many(sae_path, dtype=dtype, decoder=decoder, device=device)
+    else:
+        saes = Sae.load_many(sae_path, dtype=dtype, decoder=decoder, device=device)
+    if int8_encoder:
+        for sae in saes.values():
+            sae.quantize_encoder()
+    return saes
 
 
 def load_single_sae(

@@ -9,8 +9,9 @@ The same flags as `python -m multimodal_sae_tpu.launch.cache.cache`
 or a local plain-LLaMA checkpoint directory) and the SAEs run on the CUDA
 card; under torchrun each rank drives one card, caches a contiguous shard
 of the dataset into its own `Rank{r}_*` splits, and rank 0 merges them
-after a barrier.  int8, --tp, --dp and LLaVA checkpoints are refused until
-their slices are ported."""
+after a barrier.  `--load_in_8bit` and `--int8_matmul` quantise the
+subject (models/quant.py), `--sae_int8` the SAE encoders (W8A8); --tp,
+--dp and LLaVA checkpoints are refused until their slices are ported."""
 
 from __future__ import annotations
 
@@ -76,7 +77,7 @@ def load(cfg: CacheConfig, device: DeviceLike = None):
             raise ValueError("a synthetic subject needs a tokenized dataset")
         dataset = chunk_and_tokenize(dataset, tokenizer, max_seq_len=cfg.ctx_len)
     filters = load_filter(cfg.filters_path) if cfg.filters_path is not None else None
-    submodule_dict = load_saes(cfg.sae_path, filters=filters, device=device)
+    submodule_dict = load_saes(cfg.sae_path, filters=filters, device=device, int8_encoder=cfg.sae_int8)
     validate_hookpoints(model, list(submodule_dict))
     return model, dataset, submodule_dict, filters
 

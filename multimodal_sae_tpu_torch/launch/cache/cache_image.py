@@ -10,8 +10,10 @@ position is dropped before encoding (reference cache.py:402-409).  The
 subject (a local LLaVA-NeXT checkpoint directory) and the SAEs run on the
 CUDA card; under `torchrun --nproc_per_node N` each rank drives one card
 through `cache.run_cache`'s flow (contiguous shards, `Rank{r}_*` splits, a
-barrier, the rank-0 merge, a barrier).  int8, --tp and --dp are refused
-until their slices are ported."""
+barrier, the rank-0 merge, a barrier).  `--load_in_8bit`, `--int8_matmul`
+and `--int8_vision` quantise the subject (models/quant.py), `--sae_int8`
+the SAE encoders; --tp and --dp are refused until their slices are
+ported."""
 
 from __future__ import annotations
 
@@ -35,10 +37,13 @@ def main(cfg: CacheConfig, device: DeviceLike = None):
         hf_token=cfg.hf_token,
         truncate_layers=cfg.truncate_layers,
         device=device,
+        load_in_8bit=cfg.load_in_8bit,
+        int8_matmul=cfg.int8_matmul,
+        int8_vision=cfg.int8_vision,
     )
     dataset = load_any_dataset(cfg.dataset, cfg.split)
     filters = load_filter(cfg.filters_path) if cfg.filters_path is not None else None
-    submodule_dict = load_saes(cfg.sae_path, filters=filters, device=device)
+    submodule_dict = load_saes(cfg.sae_path, filters=filters, device=device, int8_encoder=cfg.sae_int8)
     hookpoints = list(submodule_dict.keys())
     validate_hookpoints(model, hookpoints)
     prompt = tokenizer("<image>", add_special_tokens=True)["input_ids"]

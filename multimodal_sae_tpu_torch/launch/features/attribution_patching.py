@@ -15,8 +15,11 @@ checkpoint directory, in bf16) and the SAE run on the CUDA card; one SAE
 on a subject with `forward_from_layer` (LLaMA or LLaVA-NeXT) takes the
 prefix/suffix path.  Under `torchrun --nproc_per_node N` each rank
 attributes its `np.array_split` share of the features on its card, and
-rank 0 writes the one merged file (`gather_and_merge`).  int8, --tp, --dp
-and --remat are refused (ROADMAP.md §1)."""
+rank 0 writes the one merged file (`gather_and_merge`).
+`--load_in_8bit`, `--int8_matmul` and `--int8_vision` quantise the subject
+(models/quant.py); the backward flows through the quantised products'
+straight-through gradient to the splice.  --tp, --dp and --remat are
+refused (ROADMAP.md §1)."""
 
 from __future__ import annotations
 
@@ -64,7 +67,8 @@ def main(cfg: AttributionConfig, device: DeviceLike = None):
     logger.info(f"Selecting sae layer {cfg.selected_sae}")
 
     model, _processor, tokenizer = load_subject_model(
-        cfg.model, dtype=torch.bfloat16, flash_attention=cfg.flash_attention, device=device
+        cfg.model, dtype=torch.bfloat16, flash_attention=cfg.flash_attention, device=device,
+        load_in_8bit=cfg.load_in_8bit, int8_matmul=cfg.int8_matmul, int8_vision=cfg.int8_vision,
     )
     attribution = Attribution(
         model,

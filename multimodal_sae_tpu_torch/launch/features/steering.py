@@ -11,8 +11,10 @@ generate call, and one `{module}.json` of original and steered answers is
 written per hookpoint.  The subject (a local checkpoint directory) and the
 SAEs run on the CUDA card; under `torchrun --nproc_per_node N` each rank
 steers its `np.array_split` share of each hookpoint's features and rank 0
-writes the merged json.  int8, --tp and --dp are refused until their
-slices are ported.  With bf16 weights the prefill runs kernel K3;
+writes the merged json.  `--load-in-8bit`, `--int8-matmul` and
+`--int8-vision` quantise the subject (models/quant.py); --tp and --dp are
+refused until their slices are ported.  With bf16 weights (and with a
+quantised subject, which computes in bf16) the prefill runs kernel K3;
 K3 takes bf16 only, so other dtypes run eager attention."""
 
 from __future__ import annotations
@@ -59,9 +61,13 @@ def parse_argument(argv=None):
     parser.add_argument("--seed", type=int, default=0, help="Sampling seed")
     parser.add_argument("--dtype", choices=["bfloat16", "float32", "float16"], default="bfloat16",
                         help="Subject model dtype")
-    parser.add_argument("--load-in-8bit", action="store_true", help="Not ported yet (refused)")
-    parser.add_argument("--int8-matmul", action="store_true", help="Not ported yet (refused)")
-    parser.add_argument("--int8-vision", action="store_true", help="Not ported yet (refused)")
+    parser.add_argument("--load-in-8bit", action="store_true",
+                        help="Int8-quantise the frozen subject (halves its memory; models/quant.py)")
+    parser.add_argument("--int8-matmul", action="store_true",
+                        help="W8A8 products (int8 x int8 -> int32) for the quantised subject's language model "
+                        "(implies --load-in-8bit)")
+    parser.add_argument("--int8-vision", action="store_true",
+                        help="W8A8 products for the quantised CLIP tower")
     parser.add_argument("--tp", type=int, default=0, help="Not ported yet (refused above 1)")
     parser.add_argument("--dp", type=int, default=0, help="Not ported yet (refused above 1)")
     return parser.parse_args(argv)
@@ -73,8 +79,10 @@ def main(argv=None, device: DeviceLike = None):
     device = setup(device)
     initialize_distributed(device)
     rank, world = shard_info()
+    quantized = args.load_in_8bit or args.int8_matmul
     model, processor, tokenizer = load_subject_model(
-        args.model, dtype=getattr(torch, args.dtype), flash_attention=args.dtype == "bfloat16", device=device
+        args.model, dtype=getattr(torch, args.dtype), flash_attention=args.dtype == "bfloat16" or quantized,
+        device=device, load_in_8bit=args.load_in_8bit, int8_matmul=args.int8_matmul, int8_vision=args.int8_vision,
     )
     if processor is None:  # text-only subject model
         processor = tokenizer

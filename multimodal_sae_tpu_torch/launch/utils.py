@@ -18,10 +18,6 @@ import torch
 from ..device import DeviceLike
 
 _UNPORTED = {
-    "load_in_8bit": "§1, int8 quantisation",
-    "int8_matmul": "§1, int8 quantisation",
-    "int8_vision": "§1, int8 quantisation",
-    "sae_int8": "§1, int8 quantisation",
     "tp": "§1, tensor parallelism on process groups",
     "dp": "§1, the in-process --dp replicas",
     "remat": "§1, steering and generation (remat is left out: the backward keeps its activations)",
@@ -43,6 +39,9 @@ def load_subject_model(
     hf_token: Optional[str] = None,
     truncate_layers: int = 0,
     device: DeviceLike = None,
+    load_in_8bit: bool = False,
+    int8_matmul: bool = False,
+    int8_vision: bool = False,
 ) -> Tuple[object, Optional[object], object]:
     """The frozen subject from a local HF checkpoint directory: LLaVA-NeXT
     when the checkpoint is one (config.json's model_type, else the name),
@@ -50,30 +49,56 @@ def load_subject_model(
     `truncate_layers` > 0 keeps only the first N language-model layers, whose
     weights alone reach the device; hookpoints below N are unchanged.  The
     model carries the checkpoint's `generation_config` (a dict, see
-    `_load_generation_config`), which its `generate` reads stop ids from."""
+    `_load_generation_config`), which its `generate` reads stop ids from.
+
+    `load_in_8bit` quantises the subject to int8 (models/quant.py), the
+    language model and, for LLaVA-NeXT, the CLIP tower too (the reference
+    quantises the whole model, JAX launch/utils.py:148-158); it computes in
+    bf16 with W8A16 products.  `int8_matmul` implies it and runs the
+    language model's products W8A8; `int8_vision` runs the quantised
+    tower's W8A8.  The weights are quantised after the truncation, leaf by
+    leaf as they move from the host to the device, so the dropped layers
+    never reach it and the dense and the int8 tree are never both whole on
+    it."""
     from transformers import AutoTokenizer
 
+    from ..device import resolve_device
+    from ..models.quant import quantize_clip_params, quantize_llama_params
+
+    dev = resolve_device(device)
+    quantize = load_in_8bit or int8_matmul
+    load_dev = torch.device("cpu") if quantize else dev
     if _is_llava_checkpoint(model_name_or_path):
         from transformers import LlavaNextProcessor
 
         from ..models.llava_next import LlavaNextModel, load_llava_next
 
         params, cfg = load_llava_next(
-            model_name_or_path, dtype=dtype, device=device, truncate_layers=truncate_layers
+            model_name_or_path, dtype=dtype, device=load_dev, truncate_layers=truncate_layers
         )
+        if quantize:
+            quantize_llama_params(params["language_model"], device=dev)
+            quantize_clip_params(params["vision_tower"], device=dev)
+            params["projector"] = {name: t.to(dev) for name, t in params["projector"].items()}
+            params["image_newline"] = params["image_newline"].to(dev)
         text_cfg = dataclasses.replace(
-            cfg.text_config, flash_attention=flash_attention or cfg.text_config.flash_attention
+            cfg.text_config, flash_attention=flash_attention or cfg.text_config.flash_attention,
+            int8_matmul=int8_matmul or cfg.text_config.int8_matmul,
         )
-        model = LlavaNextModel(params, dataclasses.replace(cfg, text_config=text_cfg))
+        vision_cfg = dataclasses.replace(cfg.vision_config, int8_matmul=int8_vision or cfg.vision_config.int8_matmul)
+        model = LlavaNextModel(params, dataclasses.replace(cfg, text_config=text_cfg, vision_config=vision_cfg))
         processor = LlavaNextProcessor.from_pretrained(model_name_or_path, token=hf_token)
     else:
         from ..models.hf_loader import load_llama
         from ..models.llama import LlamaModel
 
         params, cfg = load_llama(
-            model_name_or_path, dtype=dtype, device=device, truncate_layers=truncate_layers
+            model_name_or_path, dtype=dtype, device=load_dev, truncate_layers=truncate_layers
         )
-        cfg = dataclasses.replace(cfg, flash_attention=flash_attention or cfg.flash_attention)
+        if quantize:
+            quantize_llama_params(params, device=dev)
+        cfg = dataclasses.replace(cfg, flash_attention=flash_attention or cfg.flash_attention,
+                                  int8_matmul=int8_matmul or cfg.int8_matmul)
         model, processor = LlamaModel(params, cfg), None
     tokenizer = AutoTokenizer.from_pretrained(model_name_or_path, token=hf_token)
     model.generation_config = _load_generation_config(model_name_or_path)
@@ -146,6 +171,9 @@ def load_subject_or_synthetic(cfg, device: DeviceLike = None):
         hf_token=cfg.hf_token,
         truncate_layers=cfg.truncate_layers,
         device=device,
+        load_in_8bit=cfg.load_in_8bit,
+        int8_matmul=cfg.int8_matmul,
+        int8_vision=getattr(cfg, "int8_vision", False),
     )
 
 

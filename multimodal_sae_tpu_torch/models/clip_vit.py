@@ -23,6 +23,8 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from .quant import leaf_dtype, qmatmul
+
 # OpenAI CLIP pixel normalisation (HF CLIPImageProcessor defaults).
 OPENAI_CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 OPENAI_CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
@@ -42,7 +44,9 @@ class ClipVisionConfig:
     gelu, gelu_new and gelu_pytorch_tanh raises in `_activation`."""
 
     int8_matmul: bool = False
-    """The JAX package's W8A8 tower; not ported (the forward raises)."""
+    """Run a quantised tower's matrices through the W8A8 product
+    (models/quant.py `qmatmul(int8=True)`); ignored for dense weights,
+    which a quantised tower otherwise runs as W8A16."""
 
     @property
     def num_patches(self) -> int:
@@ -108,15 +112,17 @@ def _patchify(pixel_values: torch.Tensor, patch: int) -> torch.Tensor:
 
 
 def clip_attention(
-    x: torch.Tensor, lp: Dict[str, torch.Tensor], num_heads: int, mask: Optional[torch.Tensor] = None
+    x: torch.Tensor, lp: Dict[str, torch.Tensor], num_heads: int, mask: Optional[torch.Tensor] = None,
+    int8: bool = False,
 ) -> torch.Tensor:
     """Self-attention of one CLIP layer; `mask`, when given, is added to the
-    fp32 scores (the text tower's causal mask)."""
+    fp32 scores (the text tower's causal mask).  Quantised projections run
+    through `qmatmul` (W8A8 with `int8`)."""
     B, S, D = x.shape
     hd = D // num_heads
-    q = F.linear(x, lp["q_proj"]) + lp["q_bias"]
-    k = F.linear(x, lp["k_proj"]) + lp["k_bias"]
-    v = F.linear(x, lp["v_proj"]) + lp["v_bias"]
+    q = qmatmul(x, lp["q_proj"], int8=int8) + lp["q_bias"]
+    k = qmatmul(x, lp["k_proj"], int8=int8) + lp["k_bias"]
+    v = qmatmul(x, lp["v_proj"], int8=int8) + lp["v_bias"]
     q = q.view(B, S, num_heads, hd).transpose(1, 2) * as_dtype(hd**-0.5, x.dtype)
     k = k.view(B, S, num_heads, hd).transpose(1, 2)
     v = v.view(B, S, num_heads, hd).transpose(1, 2)
@@ -125,7 +131,7 @@ def clip_attention(
         scores = scores + mask
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     out = torch.matmul(probs, v).transpose(1, 2).reshape(B, S, D)
-    return F.linear(out, lp["out_proj"]) + lp["out_bias"]
+    return qmatmul(out, lp["out_proj"], int8=int8) + lp["out_bias"]
 
 
 def clip_vision_forward(
@@ -138,17 +144,16 @@ def clip_vision_forward(
     """hidden_states[feature_layer] (B, 1+P, D), indexed as HF's
     `hidden_states` (0 is the pre-layernormed embeddings).  No layer above
     the feature layer runs: the JAX package's "last" output (the
-    post-layernormed final hidden) has no caller in this package."""
-    if cfg.int8_matmul:
-        raise NotImplementedError(
-            "the int8 CLIP tower is not ported yet: ROADMAP.md §1, int8 quantisation"
-        )
+    post-layernormed final hidden) has no caller in this package.  A
+    quantised tower (models/quant.py `quantize_clip_params`) computes in
+    bf16, its products W8A16, or W8A8 with `cfg.int8_matmul`."""
     idx = feature_layer % (len(params["layers"]) + 1)
-    dtype = params["patch_embedding"].dtype
+    i8 = cfg.int8_matmul
+    dtype = leaf_dtype(params["patch_embedding"])
     B = pixel_values.shape[0]
 
     patches = _patchify(pixel_values.to(dtype), cfg.patch_size)
-    patch_embeds = F.linear(patches, params["patch_embedding"])  # (B, P, D)
+    patch_embeds = qmatmul(patches, params["patch_embedding"], int8=i8)  # (B, P, D)
     cls = params["class_embedding"][None, None, :].expand(B, 1, cfg.hidden_size)
     h = torch.cat([cls, patch_embeds], dim=1) + params["position_embedding"][None]
     h = layer_norm(h, params["pre_layrnorm"], params["pre_layrnorm_bias"], cfg.layer_norm_eps)
@@ -156,10 +161,10 @@ def clip_vision_forward(
     act = _activation(cfg.hidden_act)
     for lp in params["layers"][:idx]:
         x = layer_norm(h, lp["ln1"], lp["ln1_bias"], cfg.layer_norm_eps)
-        h = h + clip_attention(x, lp, cfg.num_attention_heads)
+        h = h + clip_attention(x, lp, cfg.num_attention_heads, int8=i8)
         x = layer_norm(h, lp["ln2"], lp["ln2_bias"], cfg.layer_norm_eps)
-        x = act(F.linear(x, lp["fc1"]) + lp["fc1_bias"])
-        h = h + (F.linear(x, lp["fc2"]) + lp["fc2_bias"])
+        x = act(qmatmul(x, lp["fc1"], int8=i8) + lp["fc1_bias"])
+        h = h + (qmatmul(x, lp["fc2"], int8=i8) + lp["fc2_bias"])
     return h
 
 

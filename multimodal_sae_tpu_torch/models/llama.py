@@ -41,6 +41,7 @@ import torch.nn.functional as F
 
 from ..device import DeviceLike, resolve_device, set_precision
 from ..ops import flash_attention as fa
+from .quant import leaf_device, leaf_dtype, qembed, qmatmul, tied_head_logits
 
 
 @dataclass(frozen=True)
@@ -62,6 +63,11 @@ class LlamaConfig:
 
     flash_attention: bool = False
     """Run attention through the causal flash-attention kernel (K3)."""
+
+    int8_matmul: bool = False
+    """Run quantised weights through the W8A8 product (models/quant.py
+    `qmatmul(int8=True)`: per-row activation quantisation, int8 x int8 ->
+    int32).  Ignored for dense weights; W8A16 otherwise."""
 
     @property
     def head_dim_(self) -> int:
@@ -228,10 +234,11 @@ def decoder_layer(
     to its end."""
     B, S, _ = h.shape
     H, kvH, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
+    i8 = cfg.int8_matmul
     x = rms_norm(h, p["input_layernorm"], cfg.rms_norm_eps)
-    q = F.linear(x, p["q_proj"]).view(B, S, H, hd).transpose(1, 2)
-    k = F.linear(x, p["k_proj"]).view(B, S, kvH, hd).transpose(1, 2)
-    v = F.linear(x, p["v_proj"]).view(B, S, kvH, hd).transpose(1, 2)
+    q = qmatmul(x, p["q_proj"], int8=i8).view(B, S, H, hd).transpose(1, 2)
+    k = qmatmul(x, p["k_proj"], int8=i8).view(B, S, kvH, hd).transpose(1, 2)
+    v = qmatmul(x, p["v_proj"], int8=i8).view(B, S, kvH, hd).transpose(1, 2)
     q, k = apply_rope(q, k, cos, sin)
     if kv is not None:
         end = cache_offset + S
@@ -245,10 +252,10 @@ def decoder_layer(
         )
     else:
         attn = attention(q, k, v, mask, hd**-0.5)
-    h = h + F.linear(attn.transpose(1, 2).reshape(B, S, H * hd), p["o_proj"])
+    h = h + qmatmul(attn.transpose(1, 2).reshape(B, S, H * hd), p["o_proj"], int8=i8)
     x = rms_norm(h, p["post_attention_layernorm"], cfg.rms_norm_eps)
-    mlp = F.silu(F.linear(x, p["gate_proj"])) * F.linear(x, p["up_proj"])
-    return h + F.linear(mlp, p["down_proj"])
+    mlp = F.silu(qmatmul(x, p["gate_proj"], int8=i8)) * qmatmul(x, p["up_proj"], int8=i8)
+    return h + qmatmul(mlp, p["down_proj"], int8=i8)
 
 
 def hookpoint_layer_idx(hookpoint: str) -> int:
@@ -298,7 +305,7 @@ def llama_forward(
     default to the block's cache positions."""
     if start_layer and (inputs_embeds is None or cache is not None):
         raise ValueError("start_layer needs inputs_embeds (the state entering that layer) and no cache")
-    h = params["embed_tokens"][input_ids] if inputs_embeds is None else inputs_embeds
+    h = qembed(params["embed_tokens"], input_ids) if inputs_embeds is None else inputs_embeds
     B, S, _ = h.shape
     offset = cache.length if cache is not None else 0
     if position_ids is None:
@@ -348,15 +355,18 @@ def llama_forward(
         if return_hidden:
             out["hidden"] = h_final
         if return_logits:
-            out["logits"] = lm_head_logits(params, h_final)
+            out["logits"] = lm_head_logits(params, h_final, int8=cfg.int8_matmul)
     return out
 
 
-def lm_head_logits(params: dict, h_final: torch.Tensor) -> torch.Tensor:
+def lm_head_logits(params: dict, h_final: torch.Tensor, int8: bool = False) -> torch.Tensor:
     """Post-norm hidden states -> vocabulary logits, through `lm_head`
-    (V, D) or, for a tied head, the embedding table."""
+    (V, D), dense or quantised (W8A8 with `int8`), or, for a tied head, the
+    embedding table."""
     head = params.get("lm_head")
-    return F.linear(h_final, params["embed_tokens"] if head is None else head)
+    if head is None:
+        return tied_head_logits(params["embed_tokens"], h_final)
+    return qmatmul(h_final, head, int8=int8)
 
 
 def suffix_params_above(params: dict, layer_idx: int) -> dict:
@@ -400,7 +410,7 @@ def forward_from_layer_above(
         h = h[torch.arange(h.shape[0], device=h.device), last][:, None]
     else:
         h = h[:, -1:]
-    return lm_head_logits(params, h)
+    return lm_head_logits(params, h, int8=cfg.int8_matmul)
 
 
 def pad_text_rows(rows) -> dict:
@@ -477,7 +487,7 @@ class LlamaModel:
     def __init__(self, params: dict, cfg: LlamaConfig):
         self.params = params
         self.cfg = cfg
-        self.device = params["embed_tokens"].device
+        self.device = leaf_device(params["embed_tokens"])
 
     @classmethod
     def random(
@@ -636,7 +646,7 @@ def greedy_generate(
     if max_new_tokens < 1:
         raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
     set_precision()
-    device = params["embed_tokens"].device
+    device = leaf_device(params["embed_tokens"])
     ids = torch.as_tensor(np.asarray(input_ids), dtype=torch.long).to(device)
     B, S = ids.shape
     am = None
@@ -670,7 +680,7 @@ def greedy_generate(
         generator = torch.Generator(device=device).manual_seed(int(seed))
     next_token = _make_next_token_fn(do_sample, temperature, top_p, generator)
 
-    cache = KVCache.init(cfg, B, S + max_new_tokens, dtype=params["embed_tokens"].dtype, device=device)
+    cache = KVCache.init(cfg, B, S + max_new_tokens, dtype=leaf_dtype(params["embed_tokens"]), device=device)
     out = llama_forward(
         params, cfg, None if inputs_embeds is not None else ids, inputs_embeds=inputs_embeds,
         attention_mask=full_mask, position_ids=prefill_pos, cache=cache, interventions=interventions,
@@ -678,7 +688,7 @@ def greedy_generate(
     )
     cache = out["cache"]
     tokens = torch.empty(B, max_new_tokens, dtype=torch.long, device=device)
-    tokens[:, 0] = next_token(lm_head_logits(params, out["hidden"][:, -1]))
+    tokens[:, 0] = next_token(lm_head_logits(params, out["hidden"][:, -1], int8=cfg.int8_matmul))
     del out
     if mark is not None:
         mark("prefill")

@@ -50,6 +50,7 @@ from .llama import (
     pad_text_rows,
     suffix_params_above,
 )
+from .quant import leaf_device, qembed
 
 DEFAULT_PINPOINTS = [[336, 672], [672, 336], [672, 672], [1008, 336], [336, 1008]]
 
@@ -242,9 +243,12 @@ def project_image_features(params: dict, cfg: LlavaNextConfig, pixel_values: tor
     if cfg.vision_feature_select_strategy == "default":
         feats = feats[:, 1:]
     p = params["projector"]
-    x = F.linear(feats, p["linear_1"]) + p["linear_1_bias"]
+    # A quantised tower gives bf16 features beside a projector kept at the
+    # load dtype: promote as jnp does.
+    dtype = torch.promote_types(feats.dtype, p["linear_1"].dtype)
+    x = F.linear(feats.to(dtype), p["linear_1"].to(dtype)) + p["linear_1_bias"]
     x = gelu(x)
-    return F.linear(x, p["linear_2"]) + p["linear_2_bias"]
+    return F.linear(x, p["linear_2"].to(x.dtype)) + p["linear_2_bias"]
 
 
 class LlavaNextModel:
@@ -261,7 +265,7 @@ class LlavaNextModel:
     def __init__(self, params: dict, cfg: LlavaNextConfig):
         self.params = params
         self.cfg = cfg
-        self.device = params["language_model"]["embed_tokens"].device
+        self.device = leaf_device(params["language_model"]["embed_tokens"])
 
     @classmethod
     def random(
@@ -379,7 +383,7 @@ class LlavaNextModel:
         # give fresh row objects and defeat the id() memo.
         pv_rows = list(batch["pixel_values"]) if batch.get("pixel_values") is not None else []
         if not pv_rows:
-            return embed[ids]
+            return qembed(embed, ids)
         tok = self.cfg.image_token_index
         vis_size = self.cfg.vision_config.image_size
 
@@ -420,7 +424,7 @@ class LlavaNextModel:
             cols.append(positions)
             fidx.append(offsets[memo_key] + np.arange(n_tokens))
         index = [torch.from_numpy(np.concatenate(a).astype(np.int64)).to(self.device) for a in (rows, cols, fidx)]
-        embeds = embed[ids]
+        embeds = qembed(embed, ids)
         embeds[index[0], index[1]] = flat_feats[index[2]].to(embeds.dtype)
         return embeds
 

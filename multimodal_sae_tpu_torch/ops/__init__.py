@@ -5,6 +5,18 @@ and `ops.flash_attention` (K3, forward and backward), each beside its plain
 version and its launch count."""
 
 from .geometric_median import geometric_median
+from .sparse_decode import eager_decode, gather_decode, sparse_decode, topk_mask_decode
 from .topk import blockmax_top_k, blockwise_top_k, kth_value, sort_pairs_by_index, top_k
 
-__all__ = ["blockmax_top_k", "blockwise_top_k", "geometric_median", "kth_value", "sort_pairs_by_index", "top_k"]
+__all__ = [
+    "blockmax_top_k",
+    "blockwise_top_k",
+    "eager_decode",
+    "gather_decode",
+    "geometric_median",
+    "kth_value",
+    "sort_pairs_by_index",
+    "sparse_decode",
+    "top_k",
+    "topk_mask_decode",
+]

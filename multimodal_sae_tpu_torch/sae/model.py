@@ -29,9 +29,11 @@ from ..device import DeviceLike, resolve_device, set_precision
 from ..ops import top_k
 from ..ops.sparse_decode import sparse_decode, topk_mask_decode
 from ..ops.topk import kth_value
+from ..models.quant import is_quantized, leaf_dtype, qmatmul, quantize_weight
 from ..utils import natsorted
 
 Params = Dict[str, torch.Tensor]
+_Q8, _SCALE = "_q8", "_scale"  # buffer suffixes of a quantised parameter
 
 
 class EncoderOutput(NamedTuple):
@@ -99,10 +101,30 @@ def init_params(
 def pre_acts(params: Params, x: torch.Tensor) -> torch.Tensor:
     """relu((x - b_dec) @ W_enc + b_enc) in the SAE's dtype.  The matmul is
     left to `torch.matmul`, as the JAX package leaves it to XLA; fp32 runs
-    with TF32 off (device.set_precision), matching the JAX side's HIGHEST."""
+    with TF32 off (device.set_precision), matching the JAX side's HIGHEST.
+
+    With a quantised encoder (`quantize_encoder`) the product is W8A8
+    (models/quant.py): each row of x - b_dec quantised by its absmax, an
+    int8 x int8 -> int32 product, scaled in fp32 (JAX sae/model.py:116-123).
+    That moves top-k ties, so it never runs on the fp32 parity path; it is
+    for inference only."""
     W = params["W_enc"]
+    if is_quantized(W):
+        sae_in = x.to(params["b_enc"].dtype) - params["b_dec"]
+        return qmatmul(sae_in, W, int8=True).add_(params["b_enc"]).relu_()
     out = (x.to(W.dtype) - params["b_dec"]) @ W
     return out.add_(params["b_enc"]).relu_()
+
+
+def quantize_encoder(params: Params) -> Params:
+    """The W8A8 encoder of the caching and interpretation paths (JAX
+    sae/model.py:135-145): W_enc (d_in, L) replaced by its int8 form, one
+    scale per latent, stored (L, d_in) as every quantised product is
+    (models/quant.py); the decoder and biases are untouched.  Inference
+    only: the training forward refuses it."""
+    out = dict(params)
+    out["W_enc"] = quantize_weight(params["W_enc"].t(), dim=1)
+    return out
 
 
 def select_topk(latents: torch.Tensor, k: int) -> EncoderOutput:
@@ -155,6 +177,11 @@ def forward(
     global losses.  `mark(stage)`, when given, is called at the end of the "encode",
     "top_k", "masked_decode" and "losses" stages (chip_smoke.py times
     them)."""
+    if is_quantized(params["W_enc"]):
+        raise ValueError(
+            "training forward requires a dense encoder — quantize_encoder is inference-only (its int8 VJP carries "
+            "no weight gradients)"
+        )
     dtype = params["W_enc"].dtype
     x = x.to(dtype)
     pre = pre_acts(params, x)
@@ -268,11 +295,41 @@ class Sae(nn.Module):
             gen = torch.Generator(device=dev).manual_seed(seed)
             params = init_params(d_in, cfg, gen, dev, dtype=dtype, decoder=decoder)
         for name, t in params.items():
+            self._register(name, t)
+
+    def _register(self, name: str, t) -> None:
+        """A tensor as the buffer `name`; a quantised one as `name`_q8 and
+        `name`_scale, which `params` joins again."""
+        if is_quantized(t):
+            self.register_buffer(name + _Q8, t["q8"])
+            self.register_buffer(name + _SCALE, t["scale"])
+        else:
             self.register_buffer(name, t)
 
     @property
     def params(self) -> Params:
-        return dict(self.named_buffers())
+        out = {}
+        for name, t in self.named_buffers():
+            if name.endswith(_Q8):
+                base = name[: -len(_Q8)]
+                out[base] = {"q8": t, "scale": getattr(self, base + _SCALE)}
+            elif not name.endswith(_SCALE):
+                out[name] = t
+        return out
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The activations' dtype of the encoder: bf16 when it is quantised
+        (JAX sae/model.py:330-333)."""
+        return leaf_dtype(self.params["W_enc"])
+
+    def quantize_encoder(self) -> "Sae":
+        """Quantise W_enc in place (module-level `quantize_encoder`); returns
+        self."""
+        quantized = quantize_encoder(self.params)["W_enc"]
+        del self._buffers["W_enc"]
+        self._register("W_enc", quantized)
+        return self
 
     def pre_acts(self, x: torch.Tensor) -> torch.Tensor:
         return pre_acts(self.params, x)

@@ -36,6 +36,18 @@ trainer.py:556, as the reference does); rank 0 saves between barriers.
 With micro_acc_steps > 1 a micro chunk is every rank's chunk of that
 index (the JAX trainer splits the global array into contiguous chunks,
 which would put whole ranks in different chunks).
+
+With `distribute_modules` the ranks shard the hookpoints instead
+(train/module_sharded.py): each rank builds and trains only its own SAEs,
+on the global batch's rows of its hookpoints that one all-to-all a batch
+brings it, so its FVU denominator is that batch's own variance and no
+gradient crosses ranks.  Each rank counts its own `input_ids`, as under
+data parallelism, while its fired masks cover the global batch.  Every
+rank writes its own SAE and optimizer files; rank 0 gathers the counters
+and writes the shared files, so the checkpoint has a world-1 run's layout.
+
+Under any multi-process run the preemption flag is OR-ed across ranks at
+each grad-acc boundary, so that every rank stops at the same one.
 """
 
 from __future__ import annotations
@@ -58,7 +70,8 @@ from ..ops.adam import ScaleByAdam, flatten_state, unflatten_state
 from ..ops.adam8bit import ADAM8BIT_FORMAT, ScaleByAdam8bit
 from ..ops.geometric_median import geometric_median
 from ..sae import Sae, forward, remove_gradient_parallel_to_decoder_directions, set_decoder_norm_to_unit_norm
-from ..parallel import barrier
+from ..parallel import barrier, gather_objects
+from .module_sharded import module_plan, scatter_hiddens
 from ..utils import natsorted, process_count, process_index, rank0_print
 from ..utils.safetensors_io import load_file, save_file
 
@@ -230,8 +243,9 @@ def apply_updates(params: Params, opt_state, optimizer, lr: float, normalize_dec
 
 class SaeTrainer:
     """Trains one SAE per hookpoint over a frozen subject, one process on
-    one device (reference trainer.py:67-461); data-parallel (module
-    docstring) when a process group of more than one rank is up.
+    one device (reference trainer.py:67-461); data-parallel, or
+    module-sharded under `cfg.distribute_modules` (module docstring), when a
+    process group of more than one rank is up.
 
     Args:
         cfg: TrainConfig (a RunConfig from the CLI).
@@ -246,10 +260,6 @@ class SaeTrainer:
     """
 
     def __init__(self, cfg: TrainConfig, dataset, model, device: DeviceLike = None, collator=None):
-        if cfg.distribute_modules:
-            raise NotImplementedError(
-                "--distribute_modules is not ported yet: ROADMAP.md §1, multi-process and tensor parallelism"
-            )
         self.device = setup(device)
         self.model = model
         self.collator = collator
@@ -278,13 +288,25 @@ class SaeTrainer:
             )
         self.cfg = cfg
         self.dataset = dataset
-        self.data_parallel = process_count() > 1
-        rank0_print(f"Training on modules: {cfg.hookpoints}")
-
         self.input_widths = model.resolve_widths(cfg.hookpoints)
+        # One plan entry per rank under distribute_modules (the hookpoints it
+        # owns); None when every rank trains every hookpoint.
+        self.module_plan = (
+            module_plan(cfg.hookpoints, self.input_widths, process_count()) if cfg.distribute_modules else None
+        )
+        self.data_parallel = process_count() > 1 and self.module_plan is None
+        if self.module_plan is None:
+            rank0_print(f"Training on modules: {cfg.hookpoints}")
+        else:
+            for r, hooks in enumerate(self.module_plan):
+                rank0_print(f"Rank {r} modules: {hooks}")
+
         sae_dtype = getattr(torch, cfg.sae_dtype)
         self.saes: Dict[str, Sae] = {}
-        for i, hook in enumerate(cfg.hookpoints):
+        local = set(self.local_hookpoints())
+        for i, hook in enumerate(cfg.hookpoints):  # seeded by the global index: any world draws the same SAE
+            if hook not in local:
+                continue
             sae = Sae(self.input_widths[hook], cfg.sae, dtype=sae_dtype, seed=i, device=self.device)
             for t in sae.params.values():
                 t.requires_grad_(True)
@@ -324,6 +346,11 @@ class SaeTrainer:
         self._dead_mask_dev: Dict[str, torch.Tensor] = {}
         self._num_tokens_in_step = 0
         self._b_dec_initialized = False  # set on resume / after step 0
+
+    def local_hookpoints(self):
+        """The hookpoints this rank trains: its block of the module plan, or
+        every hookpoint."""
+        return self.module_plan[process_index()] if self.module_plan is not None else self.cfg.hookpoints
 
     def _refresh_dead_mask(self, name: str) -> torch.Tensor:
         """The device's dead mask from the host counters (at grad-acc
@@ -398,11 +425,20 @@ class SaeTrainer:
                 self.save()
             if pbar is not None:
                 pbar.update()
-            if getattr(self, "_preempted", False) and substep == 0:
+            if substep == 0 and self._stop_requested():
                 # Stop only at a grad-acc boundary: a checkpoint keeps
                 # global_step but not a partial window's gradients.
                 rank0_print("Preemption signal received; checkpointing and stopping.")
                 break
+
+    def _stop_requested(self) -> bool:
+        """Whether any rank has caught a preemption signal (this process's
+        flag alone at world 1).  Every rank calls this at every grad-acc
+        boundary, so they all stop at the same one."""
+        flag = getattr(self, "_preempted", False)
+        if process_count() == 1:
+            return flag
+        return bool(any_across_ranks(torch.tensor([flag], device=self.device))[0])
 
     def step(self, batch: dict, avg_metrics=None, mark: Mark = None):
         """One batch: capture the hidden states, accumulate every SAE's
@@ -412,12 +448,19 @@ class SaeTrainer:
         `input_ids` positions, pads included (an un-expanded `<image>`
         placeholder counts once); every captured row trains, pad rows of a
         ragged multimodal batch included, as in the JAX trainer.
-        `mark(stage)`, when given, is called after "capture", the stages of
-        `accumulate`, and at a boundary "apply" and "bookkeeping"."""
+        `mark(stage)`, when given, is called after "capture", "exchange"
+        (module-sharded), the stages of `accumulate`, and at a boundary
+        "apply" and "bookkeeping".  Under `distribute_modules` every
+        hookpoint is captured and exchanged before this rank's SAEs train."""
         cfg = self.cfg
         hidden_dict = self.model.capture(batch, cfg.hookpoints)
         if mark is not None:
             mark("capture")
+        if self.module_plan is not None:
+            hidden_dict = scatter_hiddens({name: h.reshape(-1, h.shape[-1]) for name, h in hidden_dict.items()},
+                                          self.module_plan, process_index())
+            if mark is not None:
+                mark("exchange")
         self._num_tokens_in_step += int(np.asarray(batch["input_ids"]).size)
 
         for name, hiddens in hidden_dict.items():
@@ -474,24 +517,35 @@ class SaeTrainer:
     # ------------------------------------------------------------ checkpoints
     def save(self):
         """Write the checkpoint (reference trainer.py:540-569) under
-        `run_name` (default "sae-ckpts"), in the JAX trainer's files.  The
-        ranks hold equal state: rank 0 writes, then every rank passes a
-        barrier (reference trainer.py:540-569)."""
+        `run_name` (default "sae-ckpts"), in the JAX trainer's files, then
+        pass a barrier on every rank.  Under data parallelism the ranks hold
+        equal state and rank 0 writes it all; under module sharding each
+        rank writes its own SAEs and optimizer states, and rank 0 gathers
+        the counters and writes the shared files (reference
+        trainer.py:546-552)."""
         path = self.cfg.run_name or "sae-ckpts"
-        if process_index() != 0:
+        rank = process_index()
+        if rank != 0 and self.module_plan is None:
             barrier("trainer_save")
             return
         rank0_print("Saving checkpoint")
         os.makedirs(path, exist_ok=True)
         for hook, sae in self.saes.items():
             sae.save_to_disk(f"{path}/{hook}")
-        save_file(
-            {f"num_tokens_since_fired/{name}": counts for name, counts in self.num_tokens_since_fired.items()},
-            f"{path}/state.safetensors",
-        )
         for name in self.saes:
             leaves = flatten_state(self.opt_states[name])
             save_file({f"leaf_{i}": t for i, t in enumerate(leaves)}, f"{path}/optimizer_{_safe(name)}.safetensors")
+        counters = self.num_tokens_since_fired
+        if self.module_plan is not None:
+            gathered = gather_objects(counters)
+            if rank != 0:
+                barrier("trainer_save")
+                return
+            counters = {name: c for part in gathered for name, c in part.items()}
+        save_file(
+            {f"num_tokens_since_fired/{name}": counters[name] for name in self.cfg.hookpoints},
+            f"{path}/state.safetensors",
+        )
         with open(f"{path}/state.json", "w") as f:
             json.dump(
                 {"global_step": self.global_step, "opt_step": self.opt_step, "adam8bit_format": ADAM8BIT_FORMAT}, f
@@ -503,7 +557,7 @@ class SaeTrainer:
     def load_state(self, path: str):
         """Resume (reference trainer.py:161-186): step counters, dead-feature
         counts, optimizer states and SAE weights, from a checkpoint either
-        package wrote."""
+        package wrote; a rank reads only the hookpoints it trains."""
         with open(f"{path}/state.json") as f:
             st = json.load(f)
         if self.cfg.adam_8bit and st.get("adam8bit_format", 1) != ADAM8BIT_FORMAT:

@@ -95,8 +95,36 @@ def test_clis_write_the_same_file(setup_dirs, tmp_path, monkeypatch):
     assert np.isfinite(got).all() and got.any()
 
 
-@pytest.mark.parametrize("flag", [{"int8_matmul": True}, {"load_in_8bit": True}, {"int8_vision": True},
-                                  {"tp": 2}, {"dp": 2}, {"remat": True}], ids=lambda f: next(iter(f)))
+@pytest.mark.parametrize("flag", [{"int8_matmul": True}, {"load_in_8bit": True}, {"int8_vision": True}],
+                         ids=lambda f: next(iter(f)))
+def test_cli_attributes_a_quantized_subject(setup_dirs, tmp_path, flag, monkeypatch):
+    """The int8 flags reach `load_subject_model`, and the saliency through
+    the quantised subject's straight-through products is finite and
+    nonzero (`--int8_vision` together with `--load_in_8bit`: it acts only
+    on a quantised tower)."""
+    from multimodal_sae_tpu_torch.launch.features import attribution_patching as port_cli
+    from multimodal_sae_tpu_torch.models.quant import is_quantized
+
+    ckpt, sae_dir, probe = setup_dirs
+    flags = dict(flag, load_in_8bit=True) if "int8_vision" in flag else flag
+    loaded = []
+    load = port_cli.load_subject_model
+
+    def recording(*args, **kw):
+        loaded.append((kw, load(*args, **kw)))
+        return loaded[-1][1]
+
+    monkeypatch.setattr(port_cli, "load_subject_model", recording)
+    path = port_cli.main(AttributionConfig(model=ckpt, data_path=probe, sae_path=sae_dir, selected_sae=HOOK,
+                                           save_dir=str(tmp_path / "out"), feature_batch=32, **flags), device="cpu")
+    ((kw, (model, _, _)),) = loaded
+    assert {k: kw[k] for k in flags} == flags
+    assert is_quantized(model.params["language_model"]["layers"][0]["q_proj"])
+    maps = load_file(path)[HOOK].numpy()
+    assert maps.shape[0] == 64 * 2 and np.isfinite(maps).all() and maps.any()
+
+
+@pytest.mark.parametrize("flag", [{"tp": 2}, {"dp": 2}, {"remat": True}], ids=lambda f: next(iter(f)))
 def test_cli_refuses_options_of_later_slices(setup_dirs, tmp_path, flag, monkeypatch):
     from multimodal_sae_tpu_torch.launch.features import attribution_patching as port_cli
 

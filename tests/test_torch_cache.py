@@ -20,6 +20,7 @@ import dataclasses
 import functools
 import hashlib
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -395,8 +396,31 @@ def test_chunk_and_tokenize_matches_jax(llama_dir):
     np.testing.assert_array_equal(np.stack(got["input_ids"]), np.stack(ref["input_ids"]))
 
 
-@pytest.mark.parametrize("flag", [{"int8_matmul": True}, {"load_in_8bit": True}, {"tp": 2}, {"dp": 2},
-                                  {"sae_int8": True}])
+@pytest.mark.parametrize("flag", [{"int8_matmul": True}, {"load_in_8bit": True}, {"sae_int8": True}],
+                         ids=lambda f: next(iter(f)))
+def test_cli_passes_the_int8_flags_on(tmp_path, flag, monkeypatch):
+    """The subject's flags reach `load_subject_model` (a synthetic subject
+    has no weights to quantise, as in the JAX CLI); `--sae_int8` quantises
+    the loaded SAEs' encoders."""
+    from multimodal_sae_tpu_torch.launch import utils as launch_utils
+    from multimodal_sae_tpu_torch.launch.cache import cache as port_cli
+    from multimodal_sae_tpu_torch.models.quant import is_quantized
+
+    if "sae_int8" in flag:
+        Sae(16, SaeConfig(expansion_factor=2, k=2), device="cpu").save_to_disk(tmp_path / "saes" / "layers.0")
+        monkeypatch.setattr(port_cli, "load_any_dataset", lambda *a: SimpleNamespace(column_names=["input_ids"]))
+        _, _, saes, _ = port_cli.load(CacheConfig(model="synthetic://16,2,8", sae_path=str(tmp_path / "saes"),
+                                                  **flag), device="cpu")
+        assert is_quantized(saes["layers.0"].params["W_enc"])
+        return
+    loaded = []
+    monkeypatch.setattr(launch_utils, "load_subject_model", lambda *a, **kw: loaded.append(kw) or (None, None, None))
+    launch_utils.load_subject_or_synthetic(CacheConfig(model=str(tmp_path / "ckpt"), **flag), device="cpu")
+    ((kw,),) = [loaded]
+    assert {k: kw[k] for k in flag} == flag
+
+
+@pytest.mark.parametrize("flag", [{"tp": 2}, {"dp": 2}])
 def test_cli_refuses_options_of_later_slices(flag):
     from multimodal_sae_tpu_torch.launch.utils import load_subject_or_synthetic
 

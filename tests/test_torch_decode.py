@@ -9,6 +9,8 @@ dense scatter's autograd here and against the JAX package's VJP in
 tests/test_torch_train_ops.py.  The CUDA kernel is held against the same
 plain versions on the card by chip_smoke.py."""
 
+import importlib
+
 import numpy as np
 import pytest
 
@@ -25,8 +27,10 @@ from multimodal_sae_tpu.sae import Sae as JaxSae
 from multimodal_sae_tpu_torch.config import SaeConfig
 from multimodal_sae_tpu_torch.convert import sae_params_from_jax, tensor_from_numpy, tensor_to_numpy
 from multimodal_sae_tpu_torch.ops import gather_rows as gr
-from multimodal_sae_tpu_torch.ops import sparse_decode as sd
 from multimodal_sae_tpu_torch.sae import Sae, decode
+
+# The module: `ops.sparse_decode` is the function the package exports.
+sd = importlib.import_module("multimodal_sae_tpu_torch.ops.sparse_decode")
 
 RTOL = 1e-5
 

@@ -245,7 +245,40 @@ def test_cache_image_clis_match(llava_dir, jax_sae, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [{"int8_matmul": True}, {"load_in_8bit": True}, {"int8_vision": True},
-                                  {"tp": 2}, {"dp": 2}, {"sae_int8": True}])
+                                  {"sae_int8": True}], ids=lambda f: next(iter(f)))
+def test_cache_image_cli_passes_the_int8_flags_on(llava_dir, flag, monkeypatch):
+    """The subject's flags reach `load_subject_model`, which quantises the
+    tiny LLaVA (`--int8_matmul` implies `--load_in_8bit`), and `--sae_int8`
+    reaches `load_saes`; the run stops at the SAEs."""
+    from multimodal_sae_tpu_torch.launch.cache import cache_image as port_cli
+    from multimodal_sae_tpu_torch.models.quant import is_quantized
+
+    models, sae_flags = [], []
+    load = port_cli.load_subject_model
+
+    def recording(*args, **kw):
+        models.append(load(*args, **kw)[0])
+        return models[-1], None, None
+
+    def stop(*args, **kw):
+        sae_flags.append(kw["int8_encoder"])
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(port_cli, "load_subject_model", recording)
+    monkeypatch.setattr(port_cli, "load_saes", stop)
+    monkeypatch.setattr(port_cli, "load_any_dataset", lambda *a: None)
+    with pytest.raises(KeyboardInterrupt):
+        port_cli.main(CacheConfig(model=llava_dir, **flag), device="cpu")
+    (model,) = models
+    quantized = "int8_matmul" in flag or "load_in_8bit" in flag
+    assert is_quantized(model.params["language_model"]["embed_tokens"]) == quantized
+    assert is_quantized(model.params["vision_tower"]["patch_embedding"]) == quantized
+    assert model.cfg.text_config.int8_matmul == ("int8_matmul" in flag)
+    assert model.cfg.vision_config.int8_matmul == ("int8_vision" in flag)
+    assert sae_flags == ["sae_int8" in flag]
+
+
+@pytest.mark.parametrize("flag", [{"tp": 2}, {"dp": 2}])
 def test_cache_image_cli_refuses_options_of_later_slices(llava_dir, flag):
     from multimodal_sae_tpu_torch.launch.cache import cache_image as port_cli
 

@@ -315,8 +315,26 @@ def test_steering_cli_matches_jax_byte_for_byte(cli_setup, monkeypatch):
     assert len(json.loads(want)) == len(FEATURES)
 
 
-@pytest.mark.parametrize("flag", [["--load-in-8bit"], ["--int8-matmul"], ["--int8-vision"], ["--tp", "2"],
-                                  ["--dp", "2"]])
+@pytest.mark.parametrize("flag", ["--load-in-8bit", "--int8-matmul", "--int8-vision"])
+def test_steering_cli_passes_the_int8_flags_on(cli_setup, flag, monkeypatch):
+    from multimodal_sae_tpu_torch.launch.features import steering as port_cli
+
+    loaded = []
+
+    def stop(*args, **kw):
+        loaded.append(kw)
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(port_cli, "load_subject_model", stop)
+    with pytest.raises(KeyboardInterrupt):
+        port_cli.main(_cli_args(cli_setup, cli_setup / "port", flag), device="cpu")
+    ((kw,),) = [loaded]
+    names = {"--load-in-8bit": "load_in_8bit", "--int8-matmul": "int8_matmul", "--int8-vision": "int8_vision"}
+    assert {name: kw[name] for name in names.values()} == {name: f == flag for f, name in names.items()}
+    assert kw["flash_attention"]  # bf16, the default dtype, and a quantised subject's
+
+
+@pytest.mark.parametrize("flag", [["--tp", "2"], ["--dp", "2"]])
 def test_steering_cli_refuses_unported_flags(cli_setup, flag):
     from multimodal_sae_tpu_torch.launch.features import steering as port_cli
 

@@ -255,15 +255,45 @@ def test_cli_help_says_the_threshold_is_exact(capsys):
     assert "exact" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag", [["--tp", "2"], ["--dp", "2"], ["--load_in_8bit"], ["--int8_matmul"],
-                                  ["--int8_vision"], ["--distribute_modules"]],
-                         ids=lambda f: f[0].lstrip("-"))
+@pytest.mark.parametrize("flag", [["--tp", "2"], ["--dp", "2"]], ids=lambda f: f[0].lstrip("-"))
 def test_cli_refuses_unported_flags(tmp_path, flag):
     from multimodal_sae_tpu_torch.__main__ import run
 
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         run(_cli_args(tmp_path, "run", *flag), device="cpu")
     assert not (tmp_path / "run").exists()
+
+
+@pytest.fixture(scope="module")
+def llava_checkpoint(tmp_path_factory):
+    from torch_llava_tiny import write_checkpoint
+
+    return write_checkpoint(tmp_path_factory.mktemp("llava"))
+
+
+@pytest.mark.parametrize("flag", ["--load_in_8bit", "--int8_matmul", "--int8_vision", "--distribute_modules"])
+def test_cli_trains_with_the_ported_flags(tmp_path, llava_checkpoint, flag):
+    """The flags refused before their slices: the int8 ones on the tiny
+    LLaVA checkpoint (its language model and tower quantised, the W8A8
+    flags set; `--int8_vision` with `--load_in_8bit`, since it acts only on
+    a quantised tower), module sharding on the synthetic subject at world
+    1."""
+    from multimodal_sae_tpu_torch.__main__ import run
+    from multimodal_sae_tpu_torch.models.quant import is_quantized
+
+    args = _cli_args(tmp_path, "run", flag, *(["--load_in_8bit"] if flag == "--int8_vision" else []))
+    if flag != "--distribute_modules":
+        args[0], args[3] = llava_checkpoint, "model.layers.1"
+    trainer = run(args, device="cpu")
+    assert trainer.global_step == 6 and (tmp_path / "run" / "state.json").exists()
+    if flag == "--distribute_modules":
+        assert trainer.module_plan == [[HOOK]] and list(trainer.saes) == [HOOK]
+        return
+    params, cfg = trainer.model.params, trainer.model.cfg
+    assert is_quantized(params["language_model"]["layers"][0]["q_proj"])
+    assert is_quantized(params["vision_tower"]["layers"][0]["fc1"])
+    assert cfg.text_config.int8_matmul == (flag == "--int8_matmul")
+    assert cfg.vision_config.int8_matmul == (flag == "--int8_vision")
 
 
 def test_trainer_and_cli_turn_tf32_off(tmp_path):

@@ -52,6 +52,10 @@ def main():
             barrier(f"name_of_rank_{rank}")
         except RuntimeError as e:
             print(f"mismatch raised: {e}", flush=True)
+            # The gather behind the barrier completed on both ranks: take
+            # the group down before exiting, since gloo's threads can abort
+            # an interpreter that exits under them.
+            dist.destroy_process_group()
             sys.exit(4)
         sys.exit(0)
 
