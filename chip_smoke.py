@@ -241,7 +241,38 @@ Phases; any failure raises and ends the run with a non-zero exit code:
    MS_UPDATE_REL; int8_image_path, after K3's image attribution chains: the
    image cache phase's subject quantised (W8A16 tower), then with the
    tower's products W8A8, one batch of 4 images each;
-13. a `kernels` JSON line, the card line, and the result line.
+13. tensor parallelism and the --dp replicas (parallel/): tp_cache_path,
+   after nccl_path: the cache CLI's flow at --tp 2 as two gloo ranks
+   sharing the card (`--rank tp_cache`; each rank cache_path's subject cut
+   to its slices, 16 query and 4 KV heads, rank 0 writing), 2 batches of
+   2 x 2,048 ids, against the unsharded subject on the same batches here:
+   the hidden state at layers.24 within TP_HIDDEN_REL, at least TP_KEPT_MIN
+   of its entries kept, the splits valid, per rank the launches, the
+   collectives, tokens/s, one all-reduce's ms and the peak;
+   dp_replicas_path, after it: the cache CLI's flow at --dp 2 with both
+   replicas on this card, against one card at the same batch size (equal
+   bytes) and at twice it (whether it differs from the first; if so at
+   least DP_KEPT_MIN of its entries kept, within DP_VALUE_REL), then
+   training capture at --dp 2 (each replica's rows equal to the rows
+   captured alone, the update within DP_TRAIN_UPDATE_REL of one card's);
+   tp_subject_path, after int8_subject_path: the 32-layer subject with its
+   LM head at --tp 2 (`--rank tp_subject`): `fast_attribution_maps` at
+   layers.24 for one chunk of 8 features on the 2,432-token prompt and a
+   16-token greedy generate, against the unsharded subject here (each
+   feature's saliency, on the ranks' prefix, within TP_SALIENCY_REL of the
+   largest feature's norm, and on its own prefix reported; each generated
+   token the cache-free forward's argmax wherever the top-2 gap exceeds
+   STEER_NEAR_TIE), the collectives counted; then K3's
+   chain at the suffix's per-rank shape (8, 16, 4, 2,432, 128) and its
+   forward at tp_cache_path's (2, 16, 4, 2,048, 128), each against the
+   plain version and timed beside its bound and SDPA; tp_train_path, after
+   module_sharded_train_path: `SaeTrainer.fit` at --tp 2 (`--rank
+   tp_train`) on dp_train_path's 4-layer subject with the full-width SAE
+   and AuxK, under MMSAE_PROFILE_DIR, against one trainer here on the
+   hidden states rank 0 trained on (the update within DP_TRAIN_UPDATE_REL)
+   and one on the unsharded subject (reported), each rank's trace naming
+   K1's and K3's kernels;
+14. a `kernels` JSON line, the card line, and the result line.
 
 Needs one CUDA card; exits non-zero without one.  Imports nothing of JAX.
 Every rank process has a timeout (DP_PROC_TIMEOUT_S) and so does every
@@ -250,6 +281,7 @@ process group; a rank that fails or hangs fails the run.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -2396,8 +2428,8 @@ def phase_stats_path(dev, card: str, model, sae, records, selected) -> dict:
     return {"launches": launches}
 
 
-def check_flash_chain(dev, B: int, S: int, left_pads=None, seed: int = 11) -> dict:
-    """The K3 chain at (B, 32, kvH 8, S, 128) bf16 against the plain pair on
+def check_flash_chain(dev, B: int, S: int, left_pads=None, seed: int = 11, H: int = 32, kvH: int = 8) -> dict:
+    """The K3 chain at (B, H, kvH, S, 128) bf16 against the plain pair on
     its first min(B, 2) rows, row b left-padded by left_pads[b % len] (None:
     no mask; dO is 0 on the rows without a valid key, as on every caller's
     path); then the backward, and the forward with lse, on all B rows, each
@@ -2407,7 +2439,7 @@ def check_flash_chain(dev, B: int, S: int, left_pads=None, seed: int = 11) -> di
 
     from multimodal_sae_tpu_torch.ops import flash_attention as fa
 
-    H, kvH, hd = 32, 8, 128
+    hd = 128
     scale = hd ** -0.5
     gen = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn(B, H, S, hd, generator=gen, device=dev).to(torch.bfloat16)
@@ -4941,8 +4973,705 @@ def phase_module_sharded_train_path(dev, card: str, work_dir: str) -> dict:
             "per_rank": [r["launches"] for r in results]}
 
 
+TP_WORLD = 2
+TP_CACHE_ROWS, TP_CACHE_BATCH = 4, 2
+TP_HIDDEN_REL = 5e-2
+# tp_cache_path: the --tp 2 subject's hidden state at layers.24 against the
+# unsharded subject's on the same batch, relative L2.  Each rank rounds its
+# partial sum of o_proj and down_proj to bf16 before the fp32 sum, where
+# the unsharded product rounds once: bf16 noise of the kind that put the
+# padded image row 1.8% off itself (IMAGE_PAD_SHIFT_*).
+TP_KEPT_MIN = 0.9
+# The share of the unsharded run's cache entries (same rows, same batch
+# size) that the --tp 2 cache holds: the noise above moves latents near the
+# 256th across it (int8's 6.7% kept 91.4%).
+TP_SALIENCY_REL = 0.15
+# tp_subject_path: each feature's saliency against the unsharded suffix's
+# on the ranks' own prefix (the hook's hidden state, so the same pool and
+# splice), by L2, relative to the largest feature's norm: the suffix's bf16
+# partial sums, forward and backward (the image pad-shift check's bound).
+# Each path's own prefix moves the pool's (k+1)-th latent at the last
+# position, which the saliency there nets against (PR 16), so the whole
+# run is reported beside it, unbounded.
+TP_SUBJECT_PROMPT, TP_GENERATE_PROMPT, TP_GENERATE_NEW = 2432, 64, 16
+TP_TRAIN_BATCHES = 2
+TP_GRAD_REL = 0.2
+TP_UPDATE_REL = 0.75
+# tp_train_path: the gradient the --tp 2 trainer hands its optimizer at its
+# first step (two batches, after the clip, before Adam), and that step's
+# update, against one unsharded trainer's, relative L2 per parameter.  The
+# hidden states' bf16 noise moves latents near the 256th across it, and a
+# latent that enters or leaves the top-k adds or drops its whole row of
+# the gradient; Adam's first step, about lr * sign(g), turns each element
+# whose sign flips into a whole step.  On an H100 the --tp 2 gradient was
+# 0.096 (W_enc), 0.069 (b_enc), 0.006 (b_dec) and 0.043 (W_dec) off and
+# the update 0.369, 0.299, 0.082 and 0.339; the unsharded captures plus
+# Gaussian noise of the same norm (1.2% of the hidden states) gave 0.096,
+# 0.069, 0.006, 0.043 and 0.369, 0.298, 0.084, 0.340.  Each bound is twice
+# the larger reading: below the 0.33 or more of a gradient off by a
+# factor of 1.5 either way, and the 1.4 of an update in a random direction.
+DP_REPLICAS = 2
+DP_REPLICA_ROWS, DP_REPLICA_BATCH = 8, 2
+DP_KEPT_MIN = 0.98
+DP_VALUE_REL = 2e-2
+# dp_replicas_path, where one card at batch_size b and at 2b differ: the
+# share of the 2b run's entries the --dp 2 cache keeps, and the largest
+# difference of a kept activation relative to the largest activation.
+
+
+def _tp_subject(layers: int, dev):
+    """The random LLaMA-3-8B-width subject (seed 0, bf16, flash attention)
+    cut to `layers`, made whole on the card and cut to this rank's --tp
+    slices (the whole tree is freed)."""
+    from multimodal_sae_tpu_torch.models.llama import LlamaConfig, LlamaModel
+    from multimodal_sae_tpu_torch.parallel import shard_subject_model
+
+    cfg = LlamaConfig(num_hidden_layers=layers, flash_attention=True)
+    model = LlamaModel.random(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    shard_subject_model(model, TP_WORLD)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return model
+
+
+def _all_reduce_ms(layout, shape, dev) -> float:
+    """Wall ms of one of the layer body's all-reduces (`sum_partials`) of a
+    bf16 tensor of `shape` over this rank's TP group; every rank calls it."""
+    from multimodal_sae_tpu_torch.parallel import tensor_parallel
+
+    x = torch.randn(shape, device=dev).to(torch.bfloat16)
+    for _ in range(2):
+        tensor_parallel.sum_partials(x, layout)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        tensor_parallel.sum_partials(x, layout)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / 5 * 1e3
+
+
+def _reset_collectives() -> None:
+    from multimodal_sae_tpu_torch.parallel import tensor_parallel
+
+    for key in tensor_parallel.collective_counts:
+        tensor_parallel.collective_counts[key] = 0
+
+
+def _collectives() -> dict:
+    from multimodal_sae_tpu_torch.parallel import tensor_parallel
+
+    return dict(tensor_parallel.collective_counts)
+
+
+def rank_tp_cache(args: dict) -> dict:
+    """One rank of tp_cache_path: the cache CLI's flow (`run_cache`) at
+    --tp 2 on cache_path's subject (this rank's slices), SAE and first
+    rows; rank 0 also keeps batch 0's hidden state at layers.24."""
+    from multimodal_sae_tpu_torch.config import CacheConfig
+    from multimodal_sae_tpu_torch.interp_utils import load_saes
+    from multimodal_sae_tpu_torch.launch.cache.cache import run_cache
+    from multimodal_sae_tpu_torch.parallel import process_index
+
+    dev, hook = torch.device("cuda"), "layers.24"
+    t0 = time.perf_counter()
+    model = _tp_subject(25, dev)
+    saes = load_saes(args["sae_dir"], device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rows = cache_rows(model.cfg.vocab_size, TP_CACHE_ROWS, 2048)
+    h = model.capture({"input_ids": np.stack([r["input_ids"] for r in rows[:TP_CACHE_BATCH]])}, [hook])[hook]
+    if process_index() == 0:
+        torch.save(h.cpu(), args["h_path"])
+    del h
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gc.collect()
+    reset_kernel_counts()
+    _reset_collectives()
+    seconds = run_cache(CacheConfig(save_dir=args["save_dir"], batch_size=TP_CACHE_BATCH, ctx_len=2048,
+                                    n_splits=args["n_splits"], tp=TP_WORLD),
+                        lambda b: model.capture(b, [hook]), saes, rows)
+    launches, collectives = kernel_counts(), _collectives()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ar_ms = _all_reduce_ms(model.tensor_parallel, (TP_CACHE_BATCH, 2048, 4096), dev)
+    layout = model.tensor_parallel
+    return {"rank": process_index(), "tp_rank": layout.rank, "writes": layout.writes_outputs, "init_s": init_s,
+            "tokens_per_s": TP_CACHE_ROWS * 2048 / seconds["run"], "seconds": seconds, "peak_gb": peak_gb,
+            "launches": launches, "collectives": collectives, "all_reduce_ms": ar_ms,
+            "all_reduce_ms_per_layer": 2 * ar_ms,
+            "weights_gb": sum(_leaf_bytes(t) for t in _leaves(model.params)) / 1e9}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _leaf_bytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+def _entry_keys(locs: np.ndarray, ctx_len: int, width: int) -> np.ndarray:
+    """(row, position, feature) triples as sorted int64 keys."""
+    return np.sort((locs[:, 0].astype(np.int64) * ctx_len + locs[:, 1]) * width + locs[:, 2])
+
+
+def phase_tp_cache_path(dev, card: str, work_dir: str, cache: dict) -> dict:
+    """The cache CLI's flow at --tp 2 as two gloo ranks sharing the card
+    (`--rank tp_cache`): cache_path's subject cut into each rank's slices
+    (16 query and 4 KV heads a rank), SAE and first TP_CACHE_ROWS rows at
+    batch size TP_CACHE_BATCH, rank 0 writing; then the unsharded subject
+    here on the same batches: the hidden state at layers.24 within
+    TP_HIDDEN_REL, the share of its entries kept at least TP_KEPT_MIN, the
+    splits valid, the launches and collectives counted per rank."""
+    from multimodal_sae_tpu_torch.features.cache import topk_latents_step
+    from multimodal_sae_tpu_torch.interp_utils import load_saes
+    from multimodal_sae_tpu_torch.models.llama import LlamaConfig, LlamaModel
+
+    t_phase = time.perf_counter()
+    hook, width, ctx_len = cache["hook"], 131072, 2048
+    save_dir, h_path = os.path.join(work_dir, "tp_cache"), os.path.join(work_dir, "tp_h24.pt")
+    results, card_peak_gb = spawn_ranks("tp_cache", {"sae_dir": cache["sae_dir"], "save_dir": save_dir,
+                                                     "h_path": h_path, "n_splits": cache["n_splits"]}, TP_WORLD)
+    n_batches = TP_CACHE_ROWS // TP_CACHE_BATCH
+    for r in results:
+        want = {"block_max": 2 * n_batches if r["writes"] else 0, "flash_attention": 25 * n_batches}
+        if {k: r["launches"][k] for k in want} != want or r["collectives"] != {"all_reduce": 2 * 25 * n_batches,
+                                                                            "all_gather": 0}:
+            raise AssertionError(f"rank {r['rank']}: launches {r['launches']}, collectives {r['collectives']}")
+    locs, acts = check_splits(os.path.join(save_dir, hook), cache["n_splits"], width)
+
+    cfg = LlamaConfig(num_hidden_layers=25, flash_attention=True)
+    model = LlamaModel.random(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    sae = load_saes(cache["sae_dir"], device=dev)[hook]
+    rows = cache_rows(cfg.vocab_size, TP_CACHE_ROWS, ctx_len)
+    ref = []
+    for i in range(0, TP_CACHE_ROWS, TP_CACHE_BATCH):
+        h = model.capture({"input_ids": np.stack([r["input_ids"] for r in rows[i:i + TP_CACHE_BATCH]])}, [hook])[hook]
+        if i == 0:
+            h_tp = torch.load(h_path).to(dev)
+            hidden_rel = (torch.linalg.vector_norm((h_tp - h).float()) / torch.linalg.vector_norm(h.float())).item()
+            del h_tp
+        vals, idx = topk_latents_step(sae.params, h, sae.cfg)
+        keep = (vals.abs() > 1e-5).cpu().numpy()
+        b, s, _ = np.nonzero(keep)
+        ref.append(np.stack([b + i, s, idx.cpu().numpy()[keep]], axis=1))
+        del h, vals, idx
+    del model, sae
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref_keys, tp_keys = (_entry_keys(x, ctx_len, width) for x in (np.concatenate(ref), locs))
+    kept = len(np.intersect1d(ref_keys, tp_keys, assume_unique=True)) / len(ref_keys)
+    if hidden_rel > TP_HIDDEN_REL or kept < TP_KEPT_MIN:
+        raise AssertionError(f"--tp 2 cache: hidden {hidden_rel} off (bound {TP_HIDDEN_REL}), {kept} of the "
+                             f"unsharded entries kept (at least {TP_KEPT_MIN})")
+    emit({
+        "phase": "tp_cache_path", "world": TP_WORLD, "tp": TP_WORLD, "backend": "gloo (two ranks on one card; the "
+        "partial sums staged through pinned host memory, added in fp32)",
+        "subject": "LLaMA-3-8B widths, 25 layers, bf16, flash attention; 16 query and 4 KV heads a rank",
+        "sae": "4096 -> 131072 latents, k=256, fp32", "rows": TP_CACHE_ROWS, "batch_size": TP_CACHE_BATCH,
+        "ctx_len": ctx_len, "hidden_rel_l2_layers24": hidden_rel, "hidden_rel_bound": TP_HIDDEN_REL,
+        "entries": int(len(tp_keys)), "unsharded_entries": int(len(ref_keys)), "kept_share": kept,
+        "kept_min": TP_KEPT_MIN, "ranks": results, "card_peak_gb_nvidia_smi": card_peak_gb,
+        "seconds": time.perf_counter() - t_phase, "card": card,
+    })
+    names = ("block_max", "flash_attention", "flash_attention_bwd_delta", "flash_attention_bwd_dkdv",
+             "flash_attention_bwd_dq", "gather_rows", "splice_decode", "decode_dvals")
+    return {"launches": {name: sum(r["launches"][name] for r in results) for name in names},
+            "per_rank": [r["launches"] for r in results]}
+
+
+def _tp_subject_inputs(vocab: int) -> tuple:
+    """tp_subject_path's attribution prompt (attribution_path's), metric
+    answers and generate prompt."""
+    rng = np.random.default_rng(1)
+    batch = {"input_ids": rng.integers(0, vocab, size=(1, TP_SUBJECT_PROMPT))}
+    prompt = np.random.default_rng(5).integers(0, vocab, size=(1, TP_GENERATE_PROMPT))
+    return batch, prompt
+
+
+def rank_tp_subject(args: dict) -> dict:
+    """One rank of tp_subject_path: the 32-layer subject with its LM head at
+    --tp 2 and attribution_path's SAE; `fast_attribution_maps` at layers.24
+    for the last position's 8 largest features (one chunk), then a 16-token
+    greedy generate; rank 0 writes the saliency."""
+    from functools import partial
+
+    from multimodal_sae_tpu_torch.config import SaeConfig
+    from multimodal_sae_tpu_torch.features.patching import (
+        build_fast_attribution, fast_attribution_maps, get_logit_diff,
+    )
+    from multimodal_sae_tpu_torch.parallel import process_index
+    from multimodal_sae_tpu_torch.sae import Sae
+
+    dev, hook = torch.device("cuda"), "layers.24"
+    t0 = time.perf_counter()
+    model = _tp_subject(32, dev)
+    sae = Sae(4096, SaeConfig(num_latents=131072, k=256), decoder=True, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch, prompt = _tp_subject_inputs(model.cfg.vocab_size)
+    metric = partial(get_logit_diff, answer_token_indices=torch.tensor([[1000, 2000]], device=dev))
+    feats = build_fast_attribution(model, hook, sae, batch, metric).wide_idx[-1, :8].long().tolist()
+    prefix = model.capture(batch, [hook])[hook]
+    if process_index() == 0:
+        torch.save(prefix.cpu(), args["prefix_path"])
+    del prefix
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gc.collect()
+    reset_kernel_counts()
+    _reset_collectives()
+    t0 = time.perf_counter()
+    out = fast_attribution_maps(model, hook, sae, batch, metric, feats, feature_batch=8, progress=False)
+    torch.cuda.synchronize()
+    attribution_s = time.perf_counter() - t0
+    attribution = {"launches": kernel_counts(), "collectives": _collectives(), "seconds": attribution_s,
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if process_index() == 0:
+        np.save(args["saliency_path"], np.stack(out[hook]))
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+    _reset_collectives()
+    t0 = time.perf_counter()
+    gen = model.generate({"input_ids": prompt}, max_new_tokens=TP_GENERATE_NEW, eos_token_id=None)
+    torch.cuda.synchronize()
+    generate = {"launches": kernel_counts(), "collectives": _collectives(), "seconds": time.perf_counter() - t0,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    return {"rank": process_index(), "init_s": init_s, "features": feats, "attribution": attribution,
+            "generate": generate, "generated": gen[0, TP_GENERATE_PROMPT:].tolist()}
+
+
+def phase_tp_subject_path(dev, card: str, work_dir: str) -> dict:
+    """Attribution and generation at --tp 2 as two gloo ranks sharing the
+    card (`--rank tp_subject`): the 32-layer subject with its LM head, 16
+    query and 4 KV heads a rank, its suffix backward through the layer
+    body's autograd collectives; then here, on the unsharded subject and
+    the same SAE, the same features' saliency on the ranks' prefix (each
+    within TP_SALIENCY_REL of the largest feature's norm; on its own
+    prefix reported beside it) and a cache-free forward over the ranks'
+    generated ids (each token its argmax wherever the top-2 gap exceeds
+    STEER_NEAR_TIE, as steering_path checks); then K3's chain at the
+    suffix's per-rank shape (8, 16, 4, 2,432, 128) and its forward at
+    tp_cache_path's (2, 16, 4, 2,048, 128)."""
+    import copy
+    from functools import partial
+
+    from multimodal_sae_tpu_torch.config import SaeConfig
+    from multimodal_sae_tpu_torch.features.patching import fast_attribution_maps, get_logit_diff
+    from multimodal_sae_tpu_torch.models.llama import LlamaConfig, LlamaModel
+    from multimodal_sae_tpu_torch.ops import flash_attention as fa
+    from multimodal_sae_tpu_torch.sae import Sae
+
+    t_phase = time.perf_counter()
+    hook = "layers.24"
+    saliency_path, prefix_path = os.path.join(work_dir, "tp_saliency.npy"), os.path.join(work_dir, "tp_prefix.pt")
+    results, card_peak_gb = spawn_ranks("tp_subject", {"saliency_path": saliency_path, "prefix_path": prefix_path},
+                                        TP_WORLD)
+    if results[0]["generated"] != results[1]["generated"] or results[0]["features"] != results[1]["features"]:
+        raise AssertionError("the two --tp ranks generated or chose differently")
+    for r in results:  # one chunk: the prefix to layers.24, the suffix's 7 layers forward and backward
+        att, gen = r["attribution"], r["generate"]
+        if (att["launches"]["flash_attention"], att["launches"]["flash_attention_bwd_dq"]) != (32, 7) \
+                or att["collectives"] != {"all_reduce": 2 * 25 + 2 * 7 + 2 * 7 + 1, "all_gather": 1}:
+            raise AssertionError(f"rank {r['rank']} attribution: {att}")
+        if gen["launches"]["flash_attention"] != 32 or gen["collectives"] != {
+                "all_reduce": 2 * 32 * TP_GENERATE_NEW, "all_gather": TP_GENERATE_NEW}:
+            raise AssertionError(f"rank {r['rank']} generate: {gen}")
+    tp_sal = np.load(saliency_path)
+    feats = results[0]["features"]
+
+    cfg = LlamaConfig(flash_attention=True)
+    model = LlamaModel.random(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    sae = Sae(4096, SaeConfig(num_latents=131072, k=256), decoder=True, seed=0, device=dev)
+    batch, prompt = _tp_subject_inputs(cfg.vocab_size)
+    metric = partial(get_logit_diff, answer_token_indices=torch.tensor([[1000, 2000]], device=dev))
+    h_tp = torch.load(prefix_path).to(dev)
+    replayed = copy.copy(model)
+    replayed.capture = lambda b, hooks: {hook: h_tp}
+    sal = {}
+    for name, subject in (("ranks_prefix", replayed), ("own_prefix", model)):
+        sal[name] = np.stack(fast_attribution_maps(subject, hook, sae, batch, metric, feats, feature_batch=8,
+                                                   progress=False)[hook])
+    del sae, replayed, h_tp
+    err, corr = {}, {}
+    for name, ref in sal.items():
+        norms = np.linalg.norm(ref.reshape(len(feats), -1), axis=1)
+        err[name] = (np.linalg.norm((tp_sal - ref).reshape(len(feats), -1), axis=1) / norms.max()).tolist()
+        corr[name] = [float(np.corrcoef(a.ravel(), b.ravel())[0, 1]) for a, b in zip(tp_sal, ref)]
+    if not (np.isfinite(tp_sal).all() and max(err["ranks_prefix"]) <= TP_SALIENCY_REL):
+        raise AssertionError(f"--tp 2 saliency off the unsharded suffix's: {err} (bound {TP_SALIENCY_REL})")
+    gen_tp = torch.tensor([results[0]["generated"]], device=dev)
+    seqs = torch.cat([torch.as_tensor(prompt, device=dev), gen_tp], dim=1)
+    argmax, gap, replay = _cache_free_top2(model.params, cfg, seqs, TP_GENERATE_NEW)
+    cache_free = _check_cache_free(gen_tp, argmax, gap, replay, "--tp 2 generate")
+    solo = model.generate({"input_ids": prompt}, max_new_tokens=TP_GENERATE_NEW, eos_token_id=None)[0, TP_GENERATE_PROMPT:]
+    same = (solo == gen_tp[0]).int()
+    leading_equal = int(same.cumprod(0).sum())
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    k3_chain = check_flash_chain(dev, 8, TP_SUBJECT_PROMPT, seed=14, H=16, kvH=4)
+    k3_cache = _attention_case(fa, torch.Generator(device=dev).manual_seed(15), dev, TP_CACHE_BATCH, 16, 4, 2048, 128,
+                               None, phase="flash_attention_tp_cache")
+    emit({
+        "phase": "tp_subject_path", "world": TP_WORLD, "tp": TP_WORLD,
+        "subject": "LLaMA-3-8B widths, 32 layers, bf16, flash attention, LM head split by vocabulary",
+        "sae": "4096 -> 131072 latents, k=256, fp32, with its decoder", "hookpoint": hook,
+        "prompt": TP_SUBJECT_PROMPT, "features": feats, "saliency_err_vs_largest_norm": err,
+        "saliency_bound_ranks_prefix": TP_SALIENCY_REL, "saliency_corr": corr, "generate_prompt": TP_GENERATE_PROMPT,
+        "generated": TP_GENERATE_NEW, "cache_free": cache_free, "leading_tokens_equal_unsharded": leading_equal,
+        "ranks": results, "card_peak_gb_nvidia_smi": card_peak_gb,
+        "k3_chain_rank_shape": k3_chain, "k3_forward_tp_cache_shape": k3_cache,
+        "seconds": time.perf_counter() - t_phase, "card": card,
+    })
+    names = ("block_max", "flash_attention", "flash_attention_bwd_delta", "flash_attention_bwd_dkdv",
+             "flash_attention_bwd_dq", "gather_rows", "splice_decode", "decode_dvals")
+    launches = [{n: r["attribution"]["launches"][n] + r["generate"]["launches"][n] for n in names} for r in results]
+    return {"launches": {n: sum(run[n] for run in launches) for n in names}, "per_rank": launches,
+            "k3_chain": k3_chain, "k3_cache": k3_cache}
+
+
+def _recording_capture(model, hook: str, into: list) -> None:
+    """Wraps `model.capture` so that each call also appends its `hook`
+    hidden states to `into` (on the card)."""
+    capture = model.capture
+
+    def recording(batch, hooks):
+        out = capture(batch, hooks)
+        into.append(out[hook].detach().clone())
+        return out
+
+    model.capture = recording
+
+
+@contextlib.contextmanager
+def _first_step(into: dict, keep=lambda t: t.detach().clone()):
+    """While the block runs, records `keep` of each parameter's gradient
+    that `SaeTrainer` first hands its optimizer (after the gradient
+    all-reduce and the clip, before Adam) and of each parameter before and
+    after that step, into `into["gradient"]`, `["before"]` and `["after"]`."""
+    from multimodal_sae_tpu_torch.train import trainer as trainer_module
+
+    apply = trainer_module.apply_updates
+
+    def recording(params, *args, **kw):
+        if into:
+            return apply(params, *args, **kw)
+        into["gradient"] = {name: keep(p.grad) for name, p in params.items()}
+        into["before"] = {name: keep(p) for name, p in params.items()}
+        out = apply(params, *args, **kw)
+        into["after"] = {name: keep(p) for name, p in params.items()}
+        return out
+
+    trainer_module.apply_updates = recording
+    try:
+        yield into
+    finally:
+        trainer_module.apply_updates = apply
+
+
+def _fingerprint(t: torch.Tensor) -> list:
+    """(sum, sum of squares) of `t` in float64, chunk by chunk in a fixed
+    order: equal bits give equal fingerprints."""
+    s = q = 0.0
+    for c in t.detach().flatten().split(1 << 24):
+        c = c.double()
+        s += c.sum().item()
+        q += c.square().sum().item()
+    return [s, q]
+
+
+def rank_tp_train(args: dict) -> dict:
+    """One rank of tp_train_path: `SaeTrainer.fit` on dp_train_path's
+    4-layer subject at --tp 2 over TP_TRAIN_BATCHES batches (both ranks
+    train on the same hidden states), under MMSAE_PROFILE_DIR; rank 0 keeps
+    the hidden states it trained on, and each rank the fingerprints of the
+    gradient it handed its optimizer and of that step's update.  `fit`'s closing checkpoint (13 GB
+    with Adam's moments) is not written: the card's machine allows a call
+    45 GiB of disk writes, which dp_train_path's and
+    module_sharded_train_path's checkpoints mostly take, and those phases
+    check a checkpoint."""
+    from multimodal_sae_tpu_torch.parallel import process_index
+    from multimodal_sae_tpu_torch.train import SaeTrainer
+
+    os.environ["MMSAE_PROFILE_DIR"] = args["profile_dir"]
+    dev = torch.device("cuda")
+    model = _tp_subject(DP_TRAIN_LAYERS, dev)
+    rows = _dp_train_rows(model.cfg.vocab_size)[:TP_TRAIN_BATCHES]
+    captured, step = [], {}
+    _recording_capture(model, DP_TRAIN_HOOK, captured)
+    trainer = SaeTrainer(_dp_train_config(1, args["run_dir"]), rows, model, device=dev)
+    trainer.save = lambda: None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gc.collect()
+    reset_kernel_counts()
+    _reset_collectives()
+    t0 = time.perf_counter()
+    with _first_step(step, keep=_fingerprint):
+        trainer.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    out = {"rank": process_index(), "fit_s_traced": fit_s, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": kernel_counts(), "collectives": _collectives(), "opt_step": trainer.opt_step,
+           "global_step": trainer.global_step, "fingerprints": step}
+    if process_index() == 0:
+        torch.save([h.cpu() for h in captured], args["hidden_path"])
+    trace_path = os.path.join(args["profile_dir"], "sae_train", f"rank{process_index()}.trace.json")
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    out["trace"] = {"bytes": os.path.getsize(trace_path), "kernel_events": len(kernels),
+                    "block_max_kernel": sum("block_max_kernel" in k for k in kernels),
+                    "flash_fwd_kernel": sum("flash_fwd_kernel" in k for k in kernels)}
+    return out
+
+
+def phase_tp_train_path(dev, card: str, work_dir: str) -> dict:
+    """`SaeTrainer` at --tp 2 as two gloo ranks sharing the card (`--rank
+    tp_train`; a world of 2 is one TP group, so no gradient crosses ranks),
+    at the SAE's full width with AuxK on dp_train_path's 4-layer subject,
+    TP_TRAIN_BATCHES batches of 1 x 2,048 ids (one optimizer step), `fit`
+    traced through MMSAE_PROFILE_DIR: each rank's trace names K1's and
+    K3's kernels.  Against one trainer on the unsharded subject: the hidden
+    states within TP_HIDDEN_REL, the gradient the --tp trainer hands its
+    optimizer within TP_GRAD_REL, and the update of that step within
+    TP_UPDATE_REL.  Both are recomputed here by one trainer on rank 0's
+    captures and held to both ranks' by their fingerprints.  A control
+    trainer on the unsharded captures plus Gaussian noise of the --tp
+    difference's norm gives their spread under noise of that size,
+    reported beside them."""
+    from multimodal_sae_tpu_torch.models.llama import LlamaConfig, LlamaModel
+    from multimodal_sae_tpu_torch.train import SaeTrainer
+    from multimodal_sae_tpu_torch.train.trainer import _iter_batches
+
+    t_phase = time.perf_counter()
+    hook = DP_TRAIN_HOOK
+    profile_dir, hidden_path = os.path.join(work_dir, "tp_profile"), os.path.join(work_dir, "tp_hidden.pt")
+    results, card_peak_gb = spawn_ranks("tp_train", {"run_dir": os.path.join(work_dir, "tp_run"),
+                                                     "profile_dir": profile_dir, "hidden_path": hidden_path},
+                                        TP_WORLD)
+    want = {"block_max": 2 * TP_TRAIN_BATCHES, "flash_attention": DP_TRAIN_LAYERS * TP_TRAIN_BATCHES}
+    for r in results:
+        if not (r["trace"]["block_max_kernel"] and r["trace"]["flash_fwd_kernel"]):
+            raise AssertionError(f"rank {r['rank']}'s trace lacks K1's or K3's kernel: {r['trace']}")
+        if {k: r["launches"][k] for k in want} != want:
+            raise AssertionError(f"rank {r['rank']} launched {r['launches']}, expected {want}")
+        if (r["opt_step"], r["global_step"]) != (1, TP_TRAIN_BATCHES):
+            raise AssertionError(f"rank {r['rank']} ended at opt_step {r['opt_step']}, step {r['global_step']}")
+
+    cfg = LlamaConfig(num_hidden_layers=DP_TRAIN_LAYERS, flash_attention=True)
+    rows = _dp_train_rows(cfg.vocab_size)[:TP_TRAIN_BATCHES]
+
+    def first_step(subject, fingerprints=None) -> dict:
+        """The first step's gradient and update of one trainer on
+        `subject`; `fingerprints` gets those of its gradient and
+        parameters."""
+        step = {}
+        trainer = SaeTrainer(_dp_train_config(1, os.path.join(work_dir, "tp_reference_run")), rows, subject,
+                             device=dev)
+        with _first_step(step):
+            for batch in _iter_batches(rows, 1):
+                trainer.step(batch)
+        del trainer
+        if fingerprints is not None:
+            fingerprints.update({key: {name: _fingerprint(t) for name, t in part.items()} for key, part in step.items()})
+        before, after = step.pop("before"), step.pop("after")
+        step["update"] = {name: after[name] - before[name] for name in after}
+        del before, after
+        gc.collect()
+        torch.cuda.empty_cache()
+        return step
+
+    t_ref = time.perf_counter()
+    model = LlamaModel.random(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    unsharded_h = []
+    _recording_capture(model, hook, unsharded_h)
+    unsharded = first_step(model)
+    del model
+    tp_h = [h.to(dev) for h in torch.load(hidden_path)]
+    fingerprints = {}
+    tp = first_step(_ReplayedCaptures(cfg, hook, tp_h, dev), fingerprints)
+    for r in results:
+        if r["fingerprints"] != fingerprints:
+            raise AssertionError(f"the first step on rank 0's captures {fingerprints} is not rank {r['rank']}'s "
+                                 f"{r['fingerprints']}")
+    noisy_h = []
+    for i, (a, b) in enumerate(zip(tp_h, unsharded_h)):
+        z = torch.randn(b.shape, generator=torch.Generator(device=dev).manual_seed(i), device=dev)
+        diff = torch.linalg.vector_norm((a - b).float())
+        noisy_h.append((b.float() + z * (diff / torch.linalg.vector_norm(z))).to(b.dtype))
+    noise = first_step(_ReplayedCaptures(cfg, hook, noisy_h, dev))
+    ref_s = time.perf_counter() - t_ref
+
+    def rel(xs, ys) -> float:
+        num = sum(torch.linalg.vector_norm(x.float() - y.float()).item() ** 2 for x, y in zip(xs, ys))
+        return (num / sum(torch.linalg.vector_norm(y.float()).item() ** 2 for y in ys)) ** 0.5
+
+    hidden_rel = {"tp": rel(tp_h, unsharded_h), "noise": rel(noisy_h, unsharded_h)}
+    step_rel = {part: {key: {name: rel([got[part][name]], [unsharded[part][name]]) for name in unsharded[part]}
+                       for key, got in (("tp", tp), ("noise", noise))} for part in ("gradient", "update")}
+    del tp_h, unsharded_h, noisy_h, tp, noise, unsharded
+    gc.collect()
+    torch.cuda.empty_cache()
+    if (hidden_rel["tp"] > TP_HIDDEN_REL or not all(v <= TP_GRAD_REL for v in step_rel["gradient"]["tp"].values())
+            or not all(v <= TP_UPDATE_REL for v in step_rel["update"]["tp"].values())):
+        raise AssertionError(f"--tp 2 training off the unsharded trainer's: hidden {hidden_rel}, first step {step_rel}")
+    emit({
+        "phase": "tp_train_path", "world": TP_WORLD, "tp": TP_WORLD,
+        "subject": f"LLaMA-3-8B widths cut to {DP_TRAIN_LAYERS} layers, bf16, flash attention, {hook}",
+        "sae": "4096 -> 131072 latents, k=256, fp32, AuxK 1/32, dead threshold 0", "batches": TP_TRAIN_BATCHES,
+        "rows_a_batch": 1, "grad_acc_steps": 2, "hidden_rel_l2_vs_unsharded": hidden_rel,
+        "hidden_rel_bound": TP_HIDDEN_REL, "first_gradient_rel_l2_vs_unsharded": step_rel["gradient"],
+        "first_gradient_rel_bound": TP_GRAD_REL, "first_update_rel_l2_vs_unsharded": step_rel["update"],
+        "first_update_rel_bound": TP_UPDATE_REL, "ranks_fingerprints_equal_replayed": True,
+        "reference_trainers_s": ref_s, "ranks": results, "card_peak_gb_nvidia_smi": card_peak_gb,
+        "seconds": time.perf_counter() - t_phase, "card": card,
+    })
+    names = ("block_max", "flash_attention", "flash_attention_bwd_delta", "flash_attention_bwd_dkdv",
+             "flash_attention_bwd_dq", "gather_rows", "splice_decode", "decode_dvals")
+    return {"launches": {name: sum(r["launches"][name] for r in results) for name in names},
+            "per_rank": [r["launches"] for r in results]}
+
+
+class _ReplayedCaptures:
+    """A subject for `SaeTrainer` that hands back saved hidden states of
+    `hook`, one batch after another, on `dev` (a subject of `cfg`'s
+    widths)."""
+
+    def __init__(self, cfg, hook: str, hiddens: list, dev):
+        self.cfg, self.hook, self.hiddens, self.dev = cfg, hook, list(hiddens), dev
+
+    def hookpoint_names(self):
+        return [f"layers.{i}" for i in range(self.cfg.num_hidden_layers)]
+
+    def layers_name(self):
+        return "layers"
+
+    def resolve_widths(self, hookpoints):
+        return {h: self.cfg.hidden_size for h in hookpoints}
+
+    def capture(self, batch, hookpoints):
+        return {self.hook: self.hiddens.pop(0).to(self.dev)}
+
+
+def _split_entries(module_dir: str, n_splits: int) -> tuple:
+    locs, acts = check_splits(module_dir, n_splits, 131072)
+    keys = (locs[:, 0].astype(np.int64) * 2048 + locs[:, 1]) * 131072 + locs[:, 2]
+    order = np.argsort(keys)
+    return keys[order], acts[order]
+
+
+def phase_dp_replicas_path(dev, card: str, work_dir: str, cache: dict) -> dict:
+    """The in-process --dp 2 replicas, both on this card: the cache CLI's
+    flow (`run_cache`) at --dp 2 and batch_size DP_REPLICA_BATCH on
+    cache_path's subject and SAE (each replica captures its rows and
+    encodes them with its copy of the SAE), against one device at twice
+    that batch size over the same DP_REPLICA_ROWS rows, byte for byte (JAX
+    launch/cache/cache.py:60-64).  Only where they differ does one device
+    at DP_REPLICA_BATCH run: the --dp run must then equal it byte for byte
+    and keep at least DP_KEPT_MIN of the larger batch's entries with
+    activations within DP_VALUE_REL.  Then training capture at --dp 2: one
+    `SaeTrainer` step on 2 rows of dp_train_path's 4-layer subject, whose
+    captured rows equal each row captured alone bit for bit."""
+    import copy
+
+    from multimodal_sae_tpu_torch.config import CacheConfig
+    from multimodal_sae_tpu_torch.interp_utils import load_saes
+    from multimodal_sae_tpu_torch.launch.cache.cache import run_cache
+    from multimodal_sae_tpu_torch.models.llama import LlamaConfig, LlamaModel
+    from multimodal_sae_tpu_torch.parallel import replicate_saes, shard_subject_model_dp
+    from multimodal_sae_tpu_torch.train import SaeTrainer
+    from multimodal_sae_tpu_torch.train.trainer import _iter_batches
+
+    t_phase = time.perf_counter()
+    hook, n_splits = cache["hook"], cache["n_splits"]
+    model = LlamaModel.random(LlamaConfig(num_hidden_layers=25, flash_attention=True), seed=0,
+                              dtype=torch.bfloat16, device=dev)
+    saes = load_saes(cache["sae_dir"], device=dev)
+    rows = cache_rows(model.cfg.vocab_size, DP_REPLICA_ROWS, 2048)
+    one = copy.copy(model)
+    one_saes = {name: type(sae)(sae.d_in, sae.cfg, params=sae.params) for name, sae in saes.items()}  # shared
+    shard_subject_model_dp(model, DP_REPLICAS, devices=[dev] * DP_REPLICAS)
+    replicate_saes(model, saes.values())
+    runs = {}
+
+    def run(name, subject, subject_saes, batch_size, dp):
+        gc.collect()
+        reset_kernel_counts()
+        seconds = run_cache(CacheConfig(save_dir=os.path.join(work_dir, name), batch_size=batch_size, ctx_len=2048,
+                                        n_splits=n_splits, dp=dp), lambda b: subject.capture(b, [hook]),
+                            subject_saes, rows)
+        runs[name] = {"tokens_per_s": DP_REPLICA_ROWS * 2048 / seconds["run"], "launches": kernel_counts()}
+        return os.path.join(work_dir, name, hook)
+
+    dp_dir = run("dp", model, saes, DP_REPLICA_BATCH, DP_REPLICAS)
+    two_b_dir = run("one_2b", one, one_saes, DP_REPLICAS * DP_REPLICA_BATCH, 0)
+    steps = DP_REPLICA_ROWS // (DP_REPLICAS * DP_REPLICA_BATCH)
+    want = {"block_max": 2 * DP_REPLICAS * steps, "flash_attention": 25 * DP_REPLICAS * steps}
+    if {k: runs["dp"]["launches"][k] for k in want} != want:
+        raise AssertionError(f"--dp 2 cache launched {runs['dp']['launches']}, expected {want}")
+    try:
+        _dirs_byte_equal(dp_dir, two_b_dir)
+        equal_2b, kept, value_rel = True, 1.0, 0.0
+    except AssertionError:
+        equal_2b = False
+        _dirs_byte_equal(dp_dir, run("one_b", one, one_saes, DP_REPLICA_BATCH, 0))
+        dp_keys, dp_acts = _split_entries(dp_dir, n_splits)
+        ref_keys, ref_acts = _split_entries(two_b_dir, n_splits)
+        shared, i_dp, i_ref = np.intersect1d(dp_keys, ref_keys, assume_unique=True, return_indices=True)
+        kept = len(shared) / len(ref_keys)
+        value_rel = float(np.abs(dp_acts[i_dp] - ref_acts[i_ref]).max() / np.abs(ref_acts).max()) if len(shared) else 0.0
+        if kept < DP_KEPT_MIN or value_rel > DP_VALUE_REL:
+            raise AssertionError(f"--dp 2 cache against one card at twice the batch: {kept} kept, {value_rel}")
+    del model, one, saes, one_saes
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t_train = time.perf_counter()
+    cfg = LlamaConfig(num_hidden_layers=DP_TRAIN_LAYERS, flash_attention=True)
+    base = LlamaModel.random(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    replicated = shard_subject_model_dp(copy.copy(base), DP_REPLICAS, devices=[dev] * DP_REPLICAS)[0]
+    train_rows = _dp_train_rows(cfg.vocab_size)[:2]
+    trained_on = []
+    _recording_capture(replicated, DP_TRAIN_HOOK, trained_on)
+    trainer = SaeTrainer(_dp_train_config(2, os.path.join(work_dir, "dp_replicas_run")), train_rows, replicated,
+                         device=dev)
+    for batch in _iter_batches(train_rows, 2):
+        trainer.step(batch)
+    del trainer
+    alone = torch.cat([base.capture({"input_ids": r["input_ids"][None]}, [DP_TRAIN_HOOK])[DP_TRAIN_HOOK]
+                       for r in train_rows])
+    capture_equal = len(trained_on) == 1 and _bits_equal(trained_on[0], alone)
+    if not capture_equal:
+        raise AssertionError("--dp 2 training capture differs from each row captured alone")
+    del base, replicated, trained_on, alone
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({
+        "phase": "dp_replicas_path", "dp": DP_REPLICAS, "devices": "both replicas on this card",
+        "subject": "LLaMA-3-8B widths, 25 layers, bf16, flash attention", "sae": "4096 -> 131072 latents, k=256",
+        "rows": DP_REPLICA_ROWS, "batch_size": DP_REPLICA_BATCH, "runs": runs,
+        "dp_files_byte_equal_one_card_at_2b": equal_2b,
+        "dp_files_byte_equal_one_card_at_b": True if "one_b" in runs else "not run: equal at 2b",
+        "kept_share_vs_2b": kept, "kept_min": DP_KEPT_MIN, "max_value_diff_vs_2b_rel": value_rel,
+        "value_bound": DP_VALUE_REL, "train": {"trainer_capture_bits_equal_rows_alone": capture_equal,
+                                               "seconds": time.perf_counter() - t_train},
+        "seconds": time.perf_counter() - t_phase, "card": card,
+    })
+    return {"launches": runs["dp"]["launches"]}
+
+
 RANK_PHASES = {"dp_cache": rank_dp_cache, "dp_train": rank_dp_train, "nccl": rank_nccl,
-               "module_train": rank_module_train}
+               "module_train": rank_module_train, "tp_cache": rank_tp_cache, "tp_subject": rank_tp_subject,
+               "tp_train": rank_tp_train}
 
 
 def rank_main(phase: str, args: dict) -> int:
@@ -4991,6 +5720,12 @@ def main() -> int:
         torch.cuda.empty_cache()
         dp_cache = phase_dp_cache_path(card, work_dir, cache)
         nccl = phase_nccl_path(card, work_dir, cache)
+        tp_cache = phase_tp_cache_path(dev, card, work_dir, cache)
+        gc.collect()
+        torch.cuda.empty_cache()
+        dp_replicas = phase_dp_replicas_path(dev, card, work_dir, cache)
+        gc.collect()
+        torch.cuda.empty_cache()
         int8_cache = phase_int8_cache_path(dev, card, cache)
         gc.collect()
         torch.cuda.empty_cache()
@@ -5016,6 +5751,10 @@ def main() -> int:
     int8_subject = phase_int8_subject_path(dev, card)
     gc.collect()
     torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work_dir:
+        tp_subject = phase_tp_subject_path(dev, card, work_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
     train = phase_train_path(dev, card)
     gc.collect()
     torch.cuda.empty_cache()
@@ -5024,6 +5763,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         module_train = phase_module_sharded_train_path(dev, card, work_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        tp_train = phase_tp_train_path(dev, card, work_dir)
     gc.collect()
     torch.cuda.empty_cache()
     image = phase_image_cache_path(dev, card)
@@ -5048,12 +5790,16 @@ def main() -> int:
             explained["launches"], attribution["launches"], general["launches"], stats["launches"],
             steering["launches"], int8_subject["launches"], train["launches"], dp_train["launches"],
             module_train["launches"], image["launches"], image_train["launches"], image_steering["launches"],
-            image_attribution["launches"], int8_image["launches"], clip["launches"])
+            image_attribution["launches"], int8_image["launches"], clip["launches"], tp_cache["launches"],
+            dp_replicas["launches"], tp_subject["launches"], tp_train["launches"])
     per_rank = {phase: [{name: counts[name] for name in ("block_max", "flash_attention")} for counts in run["per_rank"]]
                 for phase, run in (("dp_cache_path", dp_cache), ("nccl_path", nccl), ("dp_train_path", dp_train),
-                                   ("module_sharded_train_path", module_train))}
+                                   ("module_sharded_train_path", module_train), ("tp_cache_path", tp_cache),
+                                   ("tp_subject_path", tp_subject), ("tp_train_path", tp_train))}
     new_phases = {"int8_cache_path": int8_cache, "int8_subject_path": int8_subject,
-                  "module_sharded_train_path": module_train, "int8_image_path": int8_image}
+                  "module_sharded_train_path": module_train, "int8_image_path": int8_image,
+                  "tp_cache_path": tp_cache, "dp_replicas_path": dp_replicas, "tp_subject_path": tp_subject,
+                  "tp_train_path": tp_train}
     total = {name: sum(run[name] for run in runs) for name in runs[0]}
     k2, splice, dvals = attribution["k2"], attribution["splice"], train["dvals"]
     bwd_launches = {part: total[f"flash_attention_bwd_{part}"] for part in ("delta", "dkdv", "dq")}
@@ -5077,6 +5823,9 @@ def main() -> int:
          "prefill_shapes": [steering["k3_prefill"], image_steering["k3_prefill"]],
          "image_attribution_with_lse": [{"shape": c["shape"], "left_pads": c["left_pads"], **c["forward_with_lse"]}
                                         for c in k3_image_attribution],
+         "tp_rank_shapes": [{key: tp_subject["k3_cache"][key] for key in ("shape", "max_abs_err", "ms", "plain_ms",
+                                                                          "bound_ms", "bound_by", "library_ms")},
+                            {"shape": tp_subject["k3_chain"]["shape"], **tp_subject["k3_chain"]["forward_with_lse"]}],
          "launches_per_rank": {phase: [c["flash_attention"] for c in ranks] for phase, ranks in per_rank.items()}},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "multimodal_sae_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -5089,7 +5838,11 @@ def main() -> int:
                                                                  "bound_ms", "bound_by", "library_ms")},
          "image_attribution": [{key: c[key] for key in ("shape", "left_pads", "max_abs_err", "ms", "plain_ms",
                                                         "bound_ms", "bound_by", "library_ms")}
-                               for c in k3_image_attribution]},
+                               for c in k3_image_attribution],
+         "tp_rank_shape": {key: tp_subject["k3_chain"][key] for key in ("shape", "max_abs_err", "ms", "plain_ms",
+                                                                       "bound_ms", "bound_by", "library_ms")},
+         "launches_per_rank": {phase: [c["flash_attention_bwd_dq"] for c in run["per_rank"]]
+                               for phase, run in (("tp_subject_path", tp_subject),)}},
         {"name": "gather_rows", "route": "cuda",
          "source": "multimodal_sae_tpu_torch/csrc/gather_rows.cu",
          "replaces": "multimodal_sae_tpu/ops/pallas_gather.py:50",
@@ -5119,7 +5872,7 @@ def main() -> int:
                                      "flash_attention_bwd_dq")}
     for entry in kernels_line["kernels"]:
         names = parts.get(entry["name"], (entry["name"],))
-        entry["launches_in_int8_and_module_sharded_phases"] = {
+        entry["launches_in_phases_of_slices_10_and_11"] = {
             phase: sum(run["launches"][name] for name in names) for phase, run in new_phases.items()}
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit(kernels_line)

@@ -16,8 +16,13 @@ cut to a length N divides and each rank trains on its contiguous shard,
 data-parallel (`SaeTrainer`), or with `--distribute_modules` each rank
 trains its block of the hookpoints on the whole global batch
 (train/module_sharded.py).  `--load_in_8bit`, `--int8_matmul` and
-`--int8_vision` quantise the subject (models/quant.py).  --tp and --dp
-are refused until their slices are ported (ROADMAP.md §1)."""
+`--int8_vision` quantise the subject (models/quant.py).  `--tp N` shards
+the subject over each group of N consecutive ranks: the dataset is sharded
+over the groups, every rank of a group trains the SAEs on the group's
+hidden states, and the gradients are summed over the ranks that share
+`rank % N`.  `--dp N` captures each batch's rows on N copies of the
+subject in one process and gathers them on the trainer's card
+(parallel/)."""
 
 from __future__ import annotations
 
@@ -25,8 +30,8 @@ from typing import Optional, Sequence
 
 from .config import RunConfig
 from .device import DeviceLike, setup
-from .launch.utils import load_any_dataset, load_subject_or_synthetic
-from .parallel import initialize_distributed, process_count, process_index
+from .launch.utils import load_any_dataset, load_subject_or_synthetic, shard_info
+from .parallel import initialize_distributed
 from .train import DataCollatorForImage, MemmapDataset, SaeTrainer, chunk_and_tokenize, process_mm_data
 from .utils import rank0_print
 from .utils.cli import parse_dataclass
@@ -73,10 +78,10 @@ def run(argv: Optional[Sequence[str]] = None, device: DeviceLike = None) -> SaeT
     device = setup(device)
     initialize_distributed(device)
     model, dataset, tokenizer = load_artifacts(args, device)
-    world, rank = process_count(), process_index()
+    rank, world = shard_info()
     if world > 1:
-        # Cut to a length the ranks divide, then shard (reference
-        # __main__.py:164-166, JAX __main__.py:76-88).
+        # Cut to a length the ranks (the TP groups under --tp) divide, then
+        # shard (reference __main__.py:164-166, JAX __main__.py:76-88).
         n = len(dataset) - len(dataset) % world
         dataset = dataset.select(range(n)).shard(world, rank)
     rank0_print(f"Training on '{args.dataset}' (split '{args.split}')")

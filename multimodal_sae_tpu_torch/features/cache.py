@@ -31,6 +31,7 @@ from ..device import set_precision
 from ..utils.safetensors_io import load_file, save_file
 from ..native import coo_extract_topk, coo_partition_splits, populated_empty
 from ..ops import sort_pairs_by_index, top_k
+from ..parallel.data_parallel import map_rows
 from ..sae import Sae
 from ..sae.model import pre_acts as sae_pre_acts
 
@@ -207,6 +208,11 @@ class FeatureCache:
         shard_size: global row offset of this process's dataset shard.
         activation_dtype: numpy dtype written to disk (fp32 gives the
             bit-stable cache).
+
+    Under `--dp` the captured rows go back to their replica's device, where
+    its copy of the SAE encodes them (`replicate_saes`,
+    `data_parallel.map_rows`), and the top-k pairs are gathered on the
+    first device in row order.
     """
 
     def __init__(
@@ -269,7 +275,7 @@ class FeatureCache:
                 # reshape then takes it as it is.
                 h = h[:, 1:, :].contiguous()
             sae = self.submodule_dict[module_path]
-            vals, idx = topk_latents_step(sae.params, h, sae.cfg)
+            vals, idx = map_rows(sae, lambda s, rows: topk_latents_step(s.params, rows, s.cfg), h)
             vals = vals.to(_TORCH_DTYPE[self.activation_dtype])
             if vals.is_cuda:
                 vals_h = torch.empty(vals.shape, dtype=vals.dtype, pin_memory=True)

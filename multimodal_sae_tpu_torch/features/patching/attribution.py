@@ -37,6 +37,7 @@ import torch
 from ...device import DeviceLike, resolve_device, set_precision
 from ...models.llava_next import repack_left_padded
 from ...ops.gather_rows import drop_positions, splice_decode, splice_lists
+from ...parallel.data_parallel import replicas_of
 from ...sae import Sae, decode, pre_acts, select_topk
 from .utils import get_logit_diff, spliced_forward_with_delta
 
@@ -59,11 +60,14 @@ class FastAttribution:
     the pool is the reference's zeroing of its column; in the degenerate
     k == width case the dropped slot decodes as 0, as there."""
 
+    replicas: tuple = ()  # a --dp subject's replicas, which split each chunk
+
     def __init__(self, model, hook: str, sae: Sae, batch: dict, metric: Callable):
         # The fp32 prefix encode runs with TF32 off, as the cache path runs
         # it: TF32 would move the top-k boundaries the pool is read from.
         set_precision()
         self.model, self.hook, self.sae, self.metric = model, hook, sae, metric
+        self.replicas = tuple(replicas_of(model))
         self.mask = batch.get("attention_mask")
         with torch.no_grad():
             h_raw = model.capture(batch, [hook])[hook]
@@ -95,7 +99,21 @@ class FastAttribution:
     def __call__(self, feats: torch.Tensor, mark: Optional[Callable[[str], None]] = None) -> torch.Tensor:
         """(F, B, S) saliency of features `feats` (F,).  `mark(stage)` is
         called after each stage ("reselect", "decode", "forward",
-        "backward", "saliency"); a caller may time the stages with it."""
+        "backward", "saliency"); a caller may time the stages with it.
+        A `--dp` subject's replicas each take an equal share of the chunk
+        (JAX attribution.py:160): its splice runs on the SAE's device, its
+        suffix forward and backward on the replica's, and the saliency is
+        gathered in feature order."""
+        replicas = self.replicas
+        if not replicas:
+            return self._chunk(feats, mark)
+        if feats.shape[0] % len(replicas):
+            raise ValueError(f"a chunk of {feats.shape[0]} features does not split over {len(replicas)} replicas")
+        return torch.cat([self._chunk(part, mark, r) for part, r in zip(feats.chunk(len(replicas)), replicas)])
+
+    def _chunk(self, feats: torch.Tensor, mark, replica=None) -> torch.Tensor:
+        """One chunk's saliency, its suffix on `replica` (a `--dp` replica's
+        device) or on the model."""
         mark = mark or (lambda stage: None)
         F, B, S = feats.shape[0], self.B, self.S
         params = self.sae.params
@@ -110,7 +128,10 @@ class FastAttribution:
         delta = torch.zeros(spliced.shape, dtype=torch.float32, device=spliced.device, requires_grad=True)
         x = spliced + delta.to(spliced.dtype)
         batch = {} if self.mask is None else {"attention_mask": np.tile(np.asarray(self.mask), (F, 1))}
-        logits = self.model.forward_from_layer(x, self.hook, batch)
+        if replica is None:
+            logits = self.model.forward_from_layer(x, self.hook, batch)
+        else:
+            logits = replica.forward_from_layer(x.to(replica.device), self.hook, batch).to(spliced.device)
         metric = sum(self.metric(logits[f * B : (f + 1) * B]) for f in range(F))
         mark("forward")
         (grad,) = torch.autograd.grad(metric, delta)
@@ -150,9 +171,13 @@ def fast_attribution_maps(
     """Prefix/suffix attribution at one hookpoint, `feature_batch` features
     per chunk (the ragged tail padded with its last feature, then trimmed).
     A chunk that runs out of device memory is retried at half the width,
-    down to 1.  Returns {hook: [(B, S) saliency per feature]}."""
+    down to 1.  Under `--dp N` the width is a multiple of N, at least N,
+    and so is every retry (JAX :160-182, :228-232).  Returns {hook: [(B, S) saliency
+    per feature]}."""
     set_precision()
     indices = np.asarray(indices)
+    dp = max(1, len(replicas_of(model)))
+    feature_batch = -(-max(feature_batch, dp) // dp) * dp
     step = build_fast_attribution(model, hook, sae, batch, metric)
     pbar = _progress(len(indices), progress)
     out = collections.defaultdict(list)
@@ -167,9 +192,9 @@ def fast_attribution_maps(
         except torch.cuda.OutOfMemoryError:
             # The stacked backward's memory grows with the chunk; halve and
             # retry instead of dying mid-sweep.
-            if feature_batch <= 1:
+            if feature_batch <= dp:
                 raise
-            feature_batch = max(1, feature_batch // 2)
+            feature_batch = max(dp, feature_batch // 2 // dp * dp)
             torch.cuda.empty_cache()
             logger.warning(f"attribution feature batch ran out of memory; retrying with feature_batch={feature_batch}")
             continue

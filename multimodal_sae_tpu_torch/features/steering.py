@@ -8,9 +8,11 @@ decode calls).  The features of a chunk ride the batch axis: row b of the
 generate batch is steered by feature b.
 
 The JAX package wraps the clamp in an `Intervention` so that its jitted
-generate program is compiled once; here an intervention is a plain callable
-`h -> h`.  The JAX controller's top-up of ragged chunks to a mesh multiple
-(`--dp`) is left out: with one process no chunk is padded.
+generate program is compiled once; here an intervention is a callable
+`h -> h`.  Under `--dp N` the controller tops a ragged chunk up to a
+multiple of N by repeating its last feature, as the JAX controller does,
+and each replica's rows are clamped at their own features
+(`BatchedClamp.rows`).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 
 from ..device import set_precision
 from ..models.llama import InterventionFn
+from ..parallel.data_parallel import replicas_of
 from ..sae import Sae
 from ..sae.model import decode as sae_decode, pre_acts as sae_pre_acts, select_topk
 
@@ -61,14 +64,29 @@ def clamp_features_max(sae: Sae, feature: int, k: float = 10) -> InterventionFn:
     return lambda h: clamp_hidden(sae, h, torch.tensor(int(feature)), k)
 
 
+class BatchedClamp:
+    """The batched clamp: row b of the hidden batch gets `features[b]`
+    clamped to `k`.  `rows(start, end)` is the clamp of rows [start, end)
+    alone, which a `--dp` replica applies to its share of the batch
+    (parallel/data_parallel.py `rows_intervention`)."""
+
+    def __init__(self, sae: Sae, features: torch.Tensor, k: float):
+        self.sae, self.features, self.k = sae, features, k
+
+    def __call__(self, h: torch.Tensor) -> torch.Tensor:
+        return clamp_hidden(self.sae, h, self.features, self.k)
+
+    def rows(self, start: int, end: int) -> "BatchedClamp":
+        return BatchedClamp(self.sae, self.features[start:end], self.k)
+
+
 def clamp_features_max_batched(sae: Sae, features: Sequence[int], k: float = 10) -> InterventionFn:
     """Batched steering intervention: row b of the hidden batch gets
     `features[b]` clamped to `k`; per row the same as `clamp_features_max`.
     The prompt is shared, so F features steer in one generate call instead
     of the reference's one call per feature."""
     set_precision()
-    feats = torch.as_tensor(np.asarray(features, dtype=np.int64))
-    return lambda h: clamp_hidden(sae, h, feats, k)
+    return BatchedClamp(sae, torch.as_tensor(np.asarray(features, dtype=np.int64)), k)
 
 
 class SteeringController:
@@ -193,11 +211,16 @@ class SteeringController:
         except ImportError:
             pbar = None
         fbs = self.feature_batch_size
+        # A `--dp N` generate splits its rows only when N divides them: a
+        # ragged chunk is topped up with its last feature (JAX :236-257),
+        # and zip() below drops the extra rows.
+        dp = max(1, len(replicas_of(self.model)))
         for i in range(0, len(self.feature_idx), fbs):
             chunk = [int(f) for f in self.feature_idx[i:i + fbs]]
-            iv = {self.module_name: clamp_features_max_batched(self.sae, chunk, k=self.k)}
+            run_chunk = chunk + [chunk[-1]] * (-len(chunk) % dp)
+            iv = {self.module_name: clamp_features_max_batched(self.sae, run_chunk, k=self.k)}
             output = self.model.generate(
-                self._replicate_batch(len(chunk)),
+                self._replicate_batch(len(run_chunk)),
                 max_new_tokens=self.max_new_tokens,
                 interventions=iv,
                 intervene_prefill_only=True,

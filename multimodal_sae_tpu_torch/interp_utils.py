@@ -1,6 +1,6 @@
 """Shared interpretation-layer utilities (multimodal_sae_tpu/interp_utils.py):
-filter, explanation and SAE loaders, the llava image-token span lookup and
-the notebook display of a record."""
+filter, explanation, SAE and tokenizer loaders, the llava image-token span
+lookup and the notebook display of a record."""
 
 from __future__ import annotations
 
@@ -136,3 +136,13 @@ def display(record: FeatureRecord, tokenizer, threshold: float = 0.0, n: int = 1
         for example in record.examples[:n]
     ]
     ipy_display(HTML("<br><br>".join(strings)))
+
+
+def load_tokenizer(model: str):
+    """The checkpoint's tokenizer with left padding and EOS as its pad
+    token (reference utils.py:233-241)."""
+    from transformers import AutoTokenizer
+
+    tokenizer = AutoTokenizer.from_pretrained(model, padding_side="left")
+    tokenizer.pad_token = tokenizer.eos_token
+    return tokenizer

@@ -10,8 +10,14 @@ or a local plain-LLaMA checkpoint directory) and the SAEs run on the CUDA
 card; under torchrun each rank drives one card, caches a contiguous shard
 of the dataset into its own `Rank{r}_*` splits, and rank 0 merges them
 after a barrier.  `--load_in_8bit` and `--int8_matmul` quantise the
-subject (models/quant.py), `--sae_int8` the SAE encoders (W8A8); --tp,
---dp and LLaVA checkpoints are refused until their slices are ported."""
+subject (models/quant.py), `--sae_int8` the SAE encoders (W8A8).
+`--tp N` under `torchrun --nproc_per_node M` (M a multiple of N) shards
+the subject over each group of N consecutive ranks
+(parallel/tensor_parallel.py): the rows are sharded over the M / N groups,
+and each group's first rank writes its splits.  `--dp N` copies the subject
+onto the first N cards of one process and feeds N x batch_size rows a step
+(parallel/data_parallel.py), so its cache equals a one-card run at that
+batch size byte for byte."""
 
 from __future__ import annotations
 
@@ -21,12 +27,14 @@ from typing import Callable, Dict
 from ...config import CacheConfig
 from ...device import DeviceLike, setup
 from ...features import FeatureCache
+from ...features.cache import _batched
 from ...interp_utils import load_filter, load_saes
 from ...logger import logger
 from ...parallel import barrier, initialize_distributed, shard_dataset_contiguous
 from ...train.data import chunk_and_tokenize
 from ...utils.cli import parse_dataclass
-from ..utils import load_any_dataset, load_subject_or_synthetic, shard_info, validate_hookpoints
+from ...parallel.tensor_parallel import replicate_saes
+from ..utils import load_any_dataset, load_subject_or_synthetic, shard_info, validate_hookpoints, writes_outputs
 
 
 def run_cache(
@@ -44,21 +52,33 @@ def run_cache(
     `{start}_{end}.safetensors` with their `.featidx` sidecars; and a
     barrier, so no rank leaves before the merge lands.  Returns the seconds
     of each step ("run", "save", "barrier_save", "merge" (rank 0),
-    "barrier_merge")."""
+    "barrier_merge").
+
+    The shard is `shard_info()`'s, the data-parallel index under `--tp`;
+    there the other ranks of a TP group only capture, the same batches in
+    the same order, since every capture is a collective of the group.  A
+    step takes `batch_size * dp` rows (`--dp`, JAX cache.py:60-64)."""
     rank, world = shard_info()
     dataset, shard_start = shard_dataset_contiguous(dataset, world, rank)
-    cache = cache_cls(
-        capture_fn, submodule_dict, batch_size=cfg.batch_size, shard_size=shard_start, filters=filters
-    )
-    cache.enable_streaming(cfg.save_dir, cfg.n_splits, rank=rank)
+    dp = max(1, getattr(cfg, "dp", 0))
+    batch_size = cfg.batch_size * dp
+    writer = writes_outputs()
+    cache = cache_cls(capture_fn, submodule_dict, batch_size=batch_size, shard_size=shard_start, filters=filters)
+    if writer:
+        cache.enable_streaming(cfg.save_dir, cfg.n_splits, rank=rank)
     t0 = time.perf_counter()
-    cache.run(cfg.ctx_len, dataset)
+    if writer:
+        cache.run(cfg.ctx_len, dataset)
+    else:
+        for batch in _batched(dataset, batch_size):
+            capture_fn(batch)
     t1 = time.perf_counter()
-    cache.save_splits(n_splits=cfg.n_splits, save_dir=cfg.save_dir, rank=rank)
+    if writer:
+        cache.save_splits(n_splits=cfg.n_splits, save_dir=cfg.save_dir, rank=rank)
     t2 = time.perf_counter()
     barrier("cache_save_splits")
     t3 = time.perf_counter()
-    if rank == 0:
+    if rank == 0 and writer:
         cache.concate_safetensors(n_splits=cfg.n_splits, save_dir=cfg.save_dir)
     t4 = time.perf_counter()
     barrier("cache_merge_done")
@@ -78,6 +98,7 @@ def load(cfg: CacheConfig, device: DeviceLike = None):
         dataset = chunk_and_tokenize(dataset, tokenizer, max_seq_len=cfg.ctx_len)
     filters = load_filter(cfg.filters_path) if cfg.filters_path is not None else None
     submodule_dict = load_saes(cfg.sae_path, filters=filters, device=device, int8_encoder=cfg.sae_int8)
+    replicate_saes(model, submodule_dict.values())
     validate_hookpoints(model, list(submodule_dict))
     return model, dataset, submodule_dict, filters
 

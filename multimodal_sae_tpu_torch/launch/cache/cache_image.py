@@ -12,8 +12,10 @@ CUDA card; under `torchrun --nproc_per_node N` each rank drives one card
 through `cache.run_cache`'s flow (contiguous shards, `Rank{r}_*` splits, a
 barrier, the rank-0 merge, a barrier).  `--load_in_8bit`, `--int8_matmul`
 and `--int8_vision` quantise the subject (models/quant.py), `--sae_int8`
-the SAE encoders; --tp and --dp are refused until their slices are
-ported."""
+the SAE encoders.  `--tp N` shards the language model over each group of
+N consecutive ranks and replicates the tower; `--dp N` splits each step's
+N x batch_size images over N copies of the subject, and each geometry
+group of the tower over them (parallel/)."""
 
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from ...device import DeviceLike, setup
 from ...features import FeatureImageCache
 from ...interp_utils import load_filter, load_saes
 from ...parallel import initialize_distributed
+from ...parallel.tensor_parallel import replicate_saes
 from ...utils.cli import parse_dataclass
 from ..utils import load_any_dataset, load_subject_model, refuse_unported, validate_hookpoints
 from .cache import run_cache
@@ -40,10 +43,13 @@ def main(cfg: CacheConfig, device: DeviceLike = None):
         load_in_8bit=cfg.load_in_8bit,
         int8_matmul=cfg.int8_matmul,
         int8_vision=cfg.int8_vision,
+        tp=cfg.tp,
+        dp=cfg.dp,
     )
     dataset = load_any_dataset(cfg.dataset, cfg.split)
     filters = load_filter(cfg.filters_path) if cfg.filters_path is not None else None
     submodule_dict = load_saes(cfg.sae_path, filters=filters, device=device, int8_encoder=cfg.sae_int8)
+    replicate_saes(model, submodule_dict.values())
     hookpoints = list(submodule_dict.keys())
     validate_hookpoints(model, hookpoints)
     prompt = tokenizer("<image>", add_special_tokens=True)["input_ids"]

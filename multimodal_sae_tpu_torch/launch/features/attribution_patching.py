@@ -18,8 +18,11 @@ attributes its `np.array_split` share of the features on its card, and
 rank 0 writes the one merged file (`gather_and_merge`).
 `--load_in_8bit`, `--int8_matmul` and `--int8_vision` quantise the subject
 (models/quant.py); the backward flows through the quantised products'
-straight-through gradient to the splice.  --tp, --dp and --remat are
-refused (ROADMAP.md §1)."""
+straight-through gradient to the splice.  `--tp N` shards the subject over
+each group of N consecutive ranks (the features are split over the groups,
+and the backward runs through the group's collectives); `--dp N` splits
+each feature chunk over N copies of the subject in one process
+(parallel/).  --remat is refused (ROADMAP.md §1)."""
 
 from __future__ import annotations
 
@@ -32,10 +35,11 @@ from ...config import AttributionConfig
 from ...device import DeviceLike, setup
 from ...features.patching import Attribution
 from ...logger import logger
-from ...parallel import all_gather_objects, initialize_distributed
+from ...parallel import all_gather_objects, initialize_distributed, process_index
+from ...parallel.tensor_parallel import replicate_saes
 from ...utils.cli import parse_dataclass
 from ...utils.safetensors_io import save_file
-from ..utils import load_subject_model, refuse_unported, shard_info, validate_hookpoints
+from ..utils import load_subject_model, refuse_unported, shard_info, validate_hookpoints, writes_outputs
 
 
 def gather_and_merge(local: dict):
@@ -43,12 +47,16 @@ def gather_and_merge(local: dict):
     order and concatenated on rank 0, which is the global feature order of
     the `np.array_split` shards; None on the other ranks (JAX
     launch/features/attribution_patching.py:29-48, reference
-    all_gather_object and rank-0 save, :50-75)."""
-    per_rank = all_gather_objects(local)
-    if shard_info()[0] != 0:
+    all_gather_object and rank-0 save, :50-75).  Under `--tp` the ranks of
+    a TP group hold the same maps: the group's first rank's are kept, and
+    the global rank 0 writes."""
+    per_rank = all_gather_objects((writes_outputs(), local))
+    if process_index() != 0:
         return None
     merged = {}
-    for part in per_rank:
+    for writer, part in per_rank:
+        if not writer:
+            continue
         for key, arr in part.items():
             merged[key] = arr if key not in merged else np.concatenate([merged[key], arr], axis=0)
     return merged
@@ -60,7 +68,6 @@ def main(cfg: AttributionConfig, device: DeviceLike = None):
     refuse_unported(cfg)
     device = setup(device)
     initialize_distributed(device)
-    rank, world = shard_info()
 
     logger.info(f"Using model {cfg.model}")
     logger.info(f"Using sae {cfg.sae_path}")
@@ -69,7 +76,9 @@ def main(cfg: AttributionConfig, device: DeviceLike = None):
     model, _processor, tokenizer = load_subject_model(
         cfg.model, dtype=torch.bfloat16, flash_attention=cfg.flash_attention, device=device,
         load_in_8bit=cfg.load_in_8bit, int8_matmul=cfg.int8_matmul, int8_vision=cfg.int8_vision,
+        tp=cfg.tp, dp=cfg.dp,
     )
+    rank, world = shard_info()
     attribution = Attribution(
         model,
         tokenizer,
@@ -79,6 +88,7 @@ def main(cfg: AttributionConfig, device: DeviceLike = None):
         feature_batch=cfg.feature_batch,
         device=device,
     )
+    replicate_saes(model, attribution.sae_dict.values())
     # A hookpoint the subject does not expose fails here, not inside the
     # capture or the suffix.
     validate_hookpoints(model, list(attribution.sae_dict))

@@ -12,8 +12,10 @@ written per hookpoint.  The subject (a local checkpoint directory) and the
 SAEs run on the CUDA card; under `torchrun --nproc_per_node N` each rank
 steers its `np.array_split` share of each hookpoint's features and rank 0
 writes the merged json.  `--load-in-8bit`, `--int8-matmul` and
-`--int8-vision` quantise the subject (models/quant.py); --tp and --dp are
-refused until their slices are ported.  With bf16 weights (and with a
+`--int8-vision` quantise the subject (models/quant.py).  `--tp N` shards
+the subject over each group of N consecutive ranks (the features are split
+over the groups); `--dp N` splits each generate batch and its KV cache over
+N copies of the subject in one process (parallel/).  With bf16 weights (and with a
 quantised subject, which computes in bf16) the prefill runs kernel K3;
 K3 takes bf16 only, so other dtypes run eager attention."""
 
@@ -30,7 +32,8 @@ from ...device import DeviceLike, setup
 from ...features.steering import SteeringController
 from ...interp_utils import load_filter, load_saes
 from ...parallel import gather_objects, initialize_distributed
-from ..utils import load_subject_model, refuse_unported, shard_info, validate_hookpoints
+from ...parallel.tensor_parallel import replicate_saes
+from ..utils import load_subject_model, refuse_unported, shard_info, validate_hookpoints, writes_outputs
 
 
 def parse_argument(argv=None):
@@ -68,8 +71,12 @@ def parse_argument(argv=None):
                         "(implies --load-in-8bit)")
     parser.add_argument("--int8-vision", action="store_true",
                         help="W8A8 products for the quantised CLIP tower")
-    parser.add_argument("--tp", type=int, default=0, help="Not ported yet (refused above 1)")
-    parser.add_argument("--dp", type=int, default=0, help="Not ported yet (refused above 1)")
+    parser.add_argument("--tp", type=int, default=0,
+                        help="Tensor-parallel degree: shard the subject over each group of this many consecutive "
+                        "torchrun ranks")
+    parser.add_argument("--dp", type=int, default=0,
+                        help="In-process data parallelism: copies of the subject on this many local cards, each "
+                        "generating its rows of a batch")
     return parser.parse_args(argv)
 
 
@@ -78,16 +85,18 @@ def main(argv=None, device: DeviceLike = None):
     refuse_unported(args)
     device = setup(device)
     initialize_distributed(device)
-    rank, world = shard_info()
     quantized = args.load_in_8bit or args.int8_matmul
     model, processor, tokenizer = load_subject_model(
         args.model, dtype=getattr(torch, args.dtype), flash_attention=args.dtype == "bfloat16" or quantized,
         device=device, load_in_8bit=args.load_in_8bit, int8_matmul=args.int8_matmul, int8_vision=args.int8_vision,
+        tp=args.tp, dp=args.dp,
     )
+    rank, world = shard_info()
     if processor is None:  # text-only subject model
         processor = tokenizer
     filters = load_filter(args.filters)
     sae_dict = load_saes(args.sae_path, filters, device=device, decoder=True)
+    replicate_saes(model, sae_dict.values())
     # A hookpoint the subject does not have would leave the clamp unapplied
     # and label unsteered answers as steered.
     validate_hookpoints(model, list(sae_dict))
@@ -116,13 +125,15 @@ def main(argv=None, device: DeviceLike = None):
         )
         # One merged json per hookpoint on rank 0 (reference gather_object,
         # launch/features/steering.py:92-106): the shards' feature keys are
-        # disjoint, so a dict union in rank order reassembles them.
-        gathered = gather_objects(controller.run())
+        # disjoint, so a dict union in rank order reassembles them; under
+        # --tp each TP group's first rank speaks for the group.
+        gathered = gather_objects((writes_outputs(), controller.run()))
         if gathered is None:
             continue
         merged = {}
-        for part in gathered:
-            merged.update(part)
+        for writer, part in gathered:
+            if writer:
+                merged.update(part)
         os.makedirs(args.save_dir, exist_ok=True)
         with open(os.path.join(args.save_dir, f"{module_name}.json"), "w", encoding="utf-8") as f:
             json.dump(merged, f, indent=4, ensure_ascii=False)

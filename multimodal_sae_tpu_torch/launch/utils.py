@@ -18,8 +18,6 @@ import torch
 from ..device import DeviceLike
 
 _UNPORTED = {
-    "tp": "§1, tensor parallelism on process groups",
-    "dp": "§1, the in-process --dp replicas",
     "remat": "§1, steering and generation (remat is left out: the backward keeps its activations)",
 }
 
@@ -42,6 +40,8 @@ def load_subject_model(
     load_in_8bit: bool = False,
     int8_matmul: bool = False,
     int8_vision: bool = False,
+    tp: int = 0,
+    dp: int = 0,
 ) -> Tuple[object, Optional[object], object]:
     """The frozen subject from a local HF checkpoint directory: LLaVA-NeXT
     when the checkpoint is one (config.json's model_type, else the name),
@@ -59,7 +59,20 @@ def load_subject_model(
     tower's W8A8.  The weights are quantised after the truncation, leaf by
     leaf as they move from the host to the device, so the dropped layers
     never reach it and the dense and the int8 tree are never both whole on
-    it."""
+    it.
+
+    `tp > 1` shards the language model over this rank's TP group of a
+    torchrun world that `tp` divides (parallel/tensor_parallel.py): the
+    weights are read and quantised on the host, and only this rank's slices
+    reach its card.  `dp > 1` copies the subject onto the first `dp` CUDA
+    devices (parallel/data_parallel.py).  The two are exclusive in one
+    process, as in the JAX package."""
+    if tp and tp > 1 and dp and dp > 1:
+        raise ValueError(
+            "--tp and --dp are mutually exclusive within one process; "
+            "compose them as multi-process data parallelism over TP "
+            "subjects (docs/DISTRIBUTED.md)"
+        )
     from transformers import AutoTokenizer
 
     from ..device import resolve_device
@@ -67,7 +80,9 @@ def load_subject_model(
 
     dev = resolve_device(device)
     quantize = load_in_8bit or int8_matmul
-    load_dev = torch.device("cpu") if quantize else dev
+    sharded = bool(tp and tp > 1)
+    load_dev = torch.device("cpu") if quantize or sharded else dev
+    quant_dev = torch.device("cpu") if sharded else dev
     if _is_llava_checkpoint(model_name_or_path):
         from transformers import LlavaNextProcessor
 
@@ -77,10 +92,10 @@ def load_subject_model(
             model_name_or_path, dtype=dtype, device=load_dev, truncate_layers=truncate_layers
         )
         if quantize:
-            quantize_llama_params(params["language_model"], device=dev)
-            quantize_clip_params(params["vision_tower"], device=dev)
-            params["projector"] = {name: t.to(dev) for name, t in params["projector"].items()}
-            params["image_newline"] = params["image_newline"].to(dev)
+            quantize_llama_params(params["language_model"], device=quant_dev)
+            quantize_clip_params(params["vision_tower"], device=quant_dev)
+            params["projector"] = {name: t.to(quant_dev) for name, t in params["projector"].items()}
+            params["image_newline"] = params["image_newline"].to(quant_dev)
         text_cfg = dataclasses.replace(
             cfg.text_config, flash_attention=flash_attention or cfg.text_config.flash_attention,
             int8_matmul=int8_matmul or cfg.text_config.int8_matmul,
@@ -96,10 +111,18 @@ def load_subject_model(
             model_name_or_path, dtype=dtype, device=load_dev, truncate_layers=truncate_layers
         )
         if quantize:
-            quantize_llama_params(params, device=dev)
+            quantize_llama_params(params, device=quant_dev)
         cfg = dataclasses.replace(cfg, flash_attention=flash_attention or cfg.flash_attention,
                                   int8_matmul=int8_matmul or cfg.int8_matmul)
         model, processor = LlamaModel(params, cfg), None
+    if sharded:
+        from ..parallel import shard_subject_model
+
+        shard_subject_model(model, tp, device=dev)
+    elif dp and dp > 1:
+        from ..parallel import shard_subject_model_dp
+
+        shard_subject_model_dp(model, dp)
     tokenizer = AutoTokenizer.from_pretrained(model_name_or_path, token=hf_token)
     model.generation_config = _load_generation_config(model_name_or_path)
     return model, processor, tokenizer
@@ -159,9 +182,13 @@ def refuse_unported(cfg) -> None:
 def load_subject_or_synthetic(cfg, device: DeviceLike = None):
     """`synthetic://dM,L,V` builds the synthetic subject; anything else is a
     local checkpoint through `load_subject_model`.  Refuses the options
-    whose paths later slices port."""
+    whose paths later slices port, and `--tp` / `--dp` on a synthetic
+    subject, which has no checkpoint weights to shard or copy."""
     refuse_unported(cfg)
     if cfg.model.startswith("synthetic://"):
+        parallel = [f"--{name} {getattr(cfg, name)}" for name in ("tp", "dp") if (getattr(cfg, name, 0) or 0) > 1]
+        if parallel:
+            raise ValueError(f"{' and '.join(parallel)} shard or copy a checkpoint subject; {cfg.model} is synthetic")
         from ..models import SyntheticActivationSource
 
         return SyntheticActivationSource.from_spec(cfg.model, device=device), None, None
@@ -174,6 +201,8 @@ def load_subject_or_synthetic(cfg, device: DeviceLike = None):
         load_in_8bit=cfg.load_in_8bit,
         int8_matmul=cfg.int8_matmul,
         int8_vision=getattr(cfg, "int8_vision", False),
+        tp=getattr(cfg, "tp", 0),
+        dp=getattr(cfg, "dp", 0),
     )
 
 
@@ -200,10 +229,27 @@ def validate_hookpoints(model, hookpoints) -> None:
 
 
 def shard_info() -> Tuple[int, int]:
-    """(rank, world) in the process group; (0, 1) when none is up."""
+    """(shard, shards) of the launch flows' rows: (rank, world) in the
+    process group, (0, 1) when none is up, and under `--tp` the
+    data-parallel index and count (`rank // tp`, `world // tp`), which every
+    rank of a TP group shares."""
+    from ..parallel.tensor_parallel import current_layout
     from ..utils.misc import process_count, process_index
 
+    layout = current_layout()
+    if layout is not None:
+        return layout.dp_index, layout.dp_size
     return process_index(), process_count()
+
+
+def writes_outputs() -> bool:
+    """Whether this rank writes the launch flows' files: every rank, each
+    its own shard, except under `--tp`, where a TP group's first rank
+    writes for the group."""
+    from ..parallel.tensor_parallel import current_layout
+
+    layout = current_layout()
+    return layout is None or layout.writes_outputs
 
 
 def infer_n_splits(activation_dir: str, module: str) -> int:

@@ -32,8 +32,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -41,6 +41,8 @@ import torch.nn.functional as F
 
 from ..device import DeviceLike, resolve_device, set_precision
 from ..ops import flash_attention as fa
+from ..parallel.data_parallel import map_rows, replicas_of
+from ..parallel.tensor_parallel import copy_to_tp, gather_from_tp, reduce_from_tp
 from .quant import leaf_device, leaf_dtype, qembed, qmatmul, tied_head_logits
 
 
@@ -69,9 +71,21 @@ class LlamaConfig:
     `qmatmul(int8=True)`: per-row activation quantisation, int8 x int8 ->
     int32).  Ignored for dense weights; W8A16 otherwise."""
 
+    tp: Optional[Any] = field(default=None, compare=False, hash=False, repr=False)
+    """The `--tp` layout (parallel/tensor_parallel.py `TensorParallel`) of a
+    subject whose weights are this rank's slices; the widths above stay the
+    whole model's."""
+
     @property
     def head_dim_(self) -> int:
         return self.head_dim or self.hidden_size // self.num_attention_heads
+
+    @property
+    def local_heads(self) -> Tuple[int, int]:
+        """(query heads, KV heads) this rank runs: all of them, or 1/N of
+        each under `--tp N`."""
+        n = self.tp.size if self.tp is not None else 1
+        return self.num_attention_heads // n, self.num_key_value_heads // n
 
     @property
     def rope_scaling_dict(self) -> Optional[dict]:
@@ -159,9 +173,10 @@ def apply_rope(q, k, cos, sin):
 class KVCache:
     """The generation loop's cache (multimodal_sae_tpu/models/llama.py
     `KVCache`): k and v of every layer, (layers, B, kvH, max_len, hd) in
-    the params' dtype, and the number of slots written.  `llama_forward`
-    writes a block's k and v into these buffers in place and returns a
-    KVCache over the same buffers with the length advanced."""
+    the params' dtype (kvH this rank's heads under `--tp`), and the number
+    of slots written.  `llama_forward` writes a block's k and v into these
+    buffers in place and returns a KVCache over the same buffers with the
+    length advanced."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -175,7 +190,7 @@ class KVCache:
         dtype: torch.dtype = torch.float32,
         device: DeviceLike = None,
     ) -> "KVCache":
-        shape = (cfg.num_hidden_layers, batch, cfg.num_key_value_heads, max_len, cfg.head_dim_)
+        shape = (cfg.num_hidden_layers, batch, cfg.local_heads[1], max_len, cfg.head_dim_)
         dev = resolve_device(device)
         return KVCache(torch.zeros(shape, dtype=dtype, device=dev), torch.zeros(shape, dtype=dtype, device=dev))
 
@@ -231,11 +246,18 @@ def decoder_layer(
     (B, kvH, max_len, hd), the block's k and v are written at
     `cache_offset`; a block at offset 0 with more than one token (the
     prefill) attends over its own keys, any other over the cache's slots up
-    to its end."""
+    to its end.
+
+    Under `--tp` (`cfg.tp`) the layer runs on this rank's heads and MLP
+    slice: the norms' outputs enter the column-split products through
+    `copy_to_tp` (identity forward, summed gradient backward), and the
+    row-split products' partial sums leave through `reduce_from_tp` (summed
+    forward, parallel/tensor_parallel.py), so `h` stays whole and equal on
+    every rank."""
     B, S, _ = h.shape
-    H, kvH, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim_
+    (H, kvH), hd, tp = cfg.local_heads, cfg.head_dim_, cfg.tp
     i8 = cfg.int8_matmul
-    x = rms_norm(h, p["input_layernorm"], cfg.rms_norm_eps)
+    x = copy_to_tp(rms_norm(h, p["input_layernorm"], cfg.rms_norm_eps), tp)
     q = qmatmul(x, p["q_proj"], int8=i8).view(B, S, H, hd).transpose(1, 2)
     k = qmatmul(x, p["k_proj"], int8=i8).view(B, S, kvH, hd).transpose(1, 2)
     v = qmatmul(x, p["v_proj"], int8=i8).view(B, S, kvH, hd).transpose(1, 2)
@@ -252,10 +274,10 @@ def decoder_layer(
         )
     else:
         attn = attention(q, k, v, mask, hd**-0.5)
-    h = h + qmatmul(attn.transpose(1, 2).reshape(B, S, H * hd), p["o_proj"], int8=i8)
-    x = rms_norm(h, p["post_attention_layernorm"], cfg.rms_norm_eps)
+    h = h + reduce_from_tp(qmatmul(attn.transpose(1, 2).reshape(B, S, H * hd), p["o_proj"], int8=i8), tp)
+    x = copy_to_tp(rms_norm(h, p["post_attention_layernorm"], cfg.rms_norm_eps), tp)
     mlp = F.silu(qmatmul(x, p["gate_proj"], int8=i8)) * qmatmul(x, p["up_proj"], int8=i8)
-    return h + qmatmul(mlp, p["down_proj"], int8=i8)
+    return h + reduce_from_tp(qmatmul(mlp, p["down_proj"], int8=i8), tp)
 
 
 def hookpoint_layer_idx(hookpoint: str) -> int:
@@ -355,18 +377,21 @@ def llama_forward(
         if return_hidden:
             out["hidden"] = h_final
         if return_logits:
-            out["logits"] = lm_head_logits(params, h_final, int8=cfg.int8_matmul)
+            out["logits"] = lm_head_logits(params, h_final, int8=cfg.int8_matmul, tp=cfg.tp)
     return out
 
 
-def lm_head_logits(params: dict, h_final: torch.Tensor, int8: bool = False) -> torch.Tensor:
+def lm_head_logits(params: dict, h_final: torch.Tensor, int8: bool = False, tp=None) -> torch.Tensor:
     """Post-norm hidden states -> vocabulary logits, through `lm_head`
     (V, D), dense or quantised (W8A8 with `int8`), or, for a tied head, the
-    embedding table."""
+    embedding table.  Under `--tp` (`tp`) the head holds this rank's slice
+    of the vocabulary (a column-split product, entered through
+    `copy_to_tp`), and every rank gets the whole vocabulary's logits,
+    gathered in rank order; a tied head is the replicated embedding."""
     head = params.get("lm_head")
     if head is None:
         return tied_head_logits(params["embed_tokens"], h_final)
-    return qmatmul(h_final, head, int8=int8)
+    return gather_from_tp(qmatmul(copy_to_tp(h_final, tp), head, int8=int8), tp)
 
 
 def suffix_params_above(params: dict, layer_idx: int) -> dict:
@@ -410,7 +435,7 @@ def forward_from_layer_above(
         h = h[torch.arange(h.shape[0], device=h.device), last][:, None]
     else:
         h = h[:, -1:]
-    return lm_head_logits(params, h, int8=cfg.int8_matmul)
+    return lm_head_logits(params, h, int8=cfg.int8_matmul, tp=cfg.tp)
 
 
 def pad_text_rows(rows) -> dict:
@@ -482,7 +507,10 @@ def init_llama_params(
 
 class LlamaModel:
     """Subject shell implementing the ActivationSource protocol
-    (models/api.py) over a param tree on one device."""
+    (models/api.py) over a param tree on one device: this rank's slices
+    under `--tp` (parallel/tensor_parallel.py), and with `--dp` replicas
+    (`dp_replicas`, parallel/data_parallel.py) that split the rows of
+    `capture` and `generate`."""
 
     def __init__(self, params: dict, cfg: LlamaConfig):
         self.params = params
@@ -517,11 +545,12 @@ class LlamaModel:
 
     @torch.no_grad()
     def capture(self, batch: dict, hookpoints: List[str]) -> Dict[str, torch.Tensor]:
+        """The hookpoints' hidden states; a `--dp` subject's replicas each
+        run their share of the rows (`data_parallel.map_rows`)."""
         ids, amask = self._ids_and_mask(batch)
-        return llama_forward(
-            self.params, self.cfg, ids, attention_mask=amask, capture=tuple(hookpoints),
-            return_logits=False,
-        )["captured"]
+        return map_rows(self, lambda m, ids, amask: llama_forward(
+            m.params, self.cfg, ids, attention_mask=amask, capture=tuple(hookpoints), return_logits=False,
+        )["captured"], ids, amask)
 
     def prepare_inputs(self, images=None, input_ids=None, prompt_ids=None) -> dict:
         """Text-only batch from token-id rows, right-padded with an attention
@@ -601,6 +630,7 @@ class LlamaModel:
             interventions=interventions, intervene_prefill_only=intervene_prefill_only,
             eos_token_id=eos_token_id, attention_mask=attention_mask, do_sample=do_sample,
             temperature=temperature, top_p=top_p, seed=seed, mark=mark,
+            replicas=[r.params for r in replicas_of(self)],
         )
 
 
@@ -626,6 +656,7 @@ def greedy_generate(
     top_p: Optional[float] = None,
     seed: int = 0,
     mark: Optional[Callable[[str], None]] = None,
+    replicas: Optional[Sequence[dict]] = None,
 ) -> torch.Tensor:
     """Greedy (default) or sampled decode with a KV cache
     (multimodal_sae_tpu/models/llama.py `greedy_generate`): one prefill,
@@ -642,7 +673,15 @@ def greedy_generate(
     row stops early.  `do_sample` draws from the fp32 logits divided by
     `temperature` and filtered by `top_p_filter` (HF's warpers), with a
     torch.Generator on the device seeded by `seed`.  `mark(stage)`, when
-    given, is called after the "prefill" and after each "step"."""
+    given, is called after the "prefill" and after each "step".
+
+    `replicas`, the parameter trees of a `--dp` subject's replicas
+    (parallel/data_parallel.py), split the rows and their KV caches over
+    their devices when the batch divides (JAX :1001-1019; else the rows run
+    on `params`): each replica runs its rows' prefill and steps, and the
+    logits are gathered on `params`' device, where every row's next token
+    is chosen, so a draw is the one-device run's.  Interventions are
+    narrowed to each replica's rows (`data_parallel.rows_intervention`)."""
     if max_new_tokens < 1:
         raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
     set_precision()
@@ -680,33 +719,42 @@ def greedy_generate(
         generator = torch.Generator(device=device).manual_seed(int(seed))
     next_token = _make_next_token_fn(do_sample, temperature, top_p, generator)
 
-    cache = KVCache.init(cfg, B, S + max_new_tokens, dtype=leaf_dtype(params["embed_tokens"]), device=device)
-    out = llama_forward(
-        params, cfg, None if inputs_embeds is not None else ids, inputs_embeds=inputs_embeds,
-        attention_mask=full_mask, position_ids=prefill_pos, cache=cache, interventions=interventions,
-        return_logits=False, return_hidden=True,
-    )
-    cache = out["cache"]
+    n = len(replicas) if replicas and B % len(replicas) == 0 else 1
+    shards = [_GenerateShard(replicas[j] if n > 1 else params, cfg, j * (B // n), (j + 1) * (B // n), device,
+                             S + max_new_tokens, interventions, n > 1)
+              for j in range(n)]
+    logits = []
+    for sh in shards:
+        out = llama_forward(
+            sh.params, cfg, None if inputs_embeds is not None else sh.rows(ids), inputs_embeds=sh.rows(inputs_embeds),
+            attention_mask=sh.rows(full_mask), position_ids=sh.rows(prefill_pos), cache=sh.cache,
+            interventions=sh.interventions, return_logits=False, return_hidden=True,
+        )
+        sh.cache = out["cache"]
+        logits.append(lm_head_logits(sh.params, out["hidden"][:, -1], int8=cfg.int8_matmul, tp=cfg.tp))
+        del out
     tokens = torch.empty(B, max_new_tokens, dtype=torch.long, device=device)
-    tokens[:, 0] = next_token(lm_head_logits(params, out["hidden"][:, -1], int8=cfg.int8_matmul))
-    del out
+    tokens[:, 0] = next_token(_gathered(logits, device))
     if mark is not None:
         mark("prefill")
     done = None
     if eos_token_id is not None:
         done = torch.isin(tokens[:, 0], eos_token_id)
-    decode_iv = None if intervene_prefill_only else interventions
     i = 1
     while i < max_new_tokens:
         if done is not None and (i - 1) % DONE_CHECK_EVERY == 0 and bool(done.all()):
             break
         pos = (lengths + i - 1)[:, None] if full_mask is not None else None
-        out = llama_forward(
-            params, cfg, tokens[:, i - 1:i], attention_mask=full_mask, position_ids=pos, cache=cache,
-            interventions=decode_iv,
-        )
-        cache = out["cache"]
-        nxt = next_token(out["logits"][:, -1])
+        logits = []
+        for sh in shards:
+            out = llama_forward(
+                sh.params, cfg, sh.rows(tokens[:, i - 1:i]), attention_mask=sh.rows(full_mask),
+                position_ids=sh.rows(pos), cache=sh.cache,
+                interventions=None if intervene_prefill_only else sh.interventions,
+            )
+            sh.cache = out["cache"]
+            logits.append(out["logits"][:, -1])
+        nxt = next_token(_gathered(logits, device))
         if done is not None:
             nxt = torch.where(done, eos_token_id[0], nxt)
             done |= torch.isin(nxt, eos_token_id)
@@ -717,6 +765,33 @@ def greedy_generate(
     if done is not None:
         tokens[:, i:] = eos_token_id[0]
     return torch.cat([ids, tokens], dim=1)
+
+
+class _GenerateShard:
+    """One replica's rows [start, end) of a generate batch: its parameters,
+    its KV cache on its device, and its interventions (the whole batch's,
+    narrowed to its rows, when the batch is split)."""
+
+    def __init__(self, params, cfg, start, end, home, max_len, interventions, split):
+        self.params, self.start, self.end = params, start, end
+        self.device = leaf_device(params["embed_tokens"])
+        self.cache = KVCache.init(cfg, end - start, max_len, dtype=leaf_dtype(params["embed_tokens"]),
+                                  device=self.device)
+        self.split = split
+        self.interventions = interventions
+        if split and interventions:
+            from ..parallel.data_parallel import rows_intervention
+
+            self.interventions = {k: rows_intervention(fn, start, end, home) for k, fn in interventions.items()}
+
+    def rows(self, x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        if x is None or not self.split:
+            return x
+        return x[self.start:self.end].to(self.device)
+
+
+def _gathered(parts: List[torch.Tensor], device) -> torch.Tensor:
+    return parts[0] if len(parts) == 1 else torch.cat([p.to(device) for p in parts])
 
 
 def top_p_filter(logits: torch.Tensor, top_p: float) -> torch.Tensor:

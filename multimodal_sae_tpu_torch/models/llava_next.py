@@ -9,9 +9,11 @@ right-pads the rows; `_embed_multimodal` runs the tower, projector and
 pack once per distinct image, one batched call per geometry, and scatters
 the packed features over the placeholder positions.  The JAX package's
 XLA mechanisms are left out (its LRU cache of compiled programs, the
-forward's 128-token bucket padding, `batch_sharding`); the outputs are the
-same.  `generate` repacks the prepared right-padded batch to left padding
-and runs `llama.greedy_generate` on the multimodal embeddings;
+forward's 128-token bucket padding); the outputs are the same.  Under
+`--dp` (`batch_sharding` there) the replicas of parallel/data_parallel.py
+split the same axes.  `generate` repacks the prepared right-padded batch
+to left padding and runs `llama.greedy_generate` on the multimodal
+embeddings;
 `forward_from_layer` resumes the language model above a hookpoint (the
 suffix of fast attribution: the tower, projector and packing all run below
 any language hookpoint, so the suffix is text layers only).
@@ -50,6 +52,7 @@ from .llama import (
     pad_text_rows,
     suffix_params_above,
 )
+from ..parallel.data_parallel import map_rows, replicas_of
 from .quant import leaf_device, qembed
 
 DEFAULT_PINPOINTS = [[336, 672], [672, 336], [672, 672], [1008, 336], [336, 1008]]
@@ -252,7 +255,9 @@ def project_image_features(params: dict, cfg: LlavaNextConfig, pixel_values: tor
 
 
 class LlavaNextModel:
-    """ActivationSource and forward for LLaVA-NeXT on one device.
+    """ActivationSource and forward for LLaVA-NeXT on one device (the
+    language model's slices under `--tp`, with `--dp` replicas that split
+    the rows and the vision tower's geometry groups; parallel/).
 
     params = {"vision_tower": clip tree, "projector": {...},
     "image_newline": (D,), "language_model": llama tree}.  Hookpoints are
@@ -360,10 +365,16 @@ class LlavaNextModel:
 
     def _project_pack_group(self, pv_stacked: torch.Tensor, size, n_tokens: int) -> torch.Tensor:
         """Tower, projector and pack for G images of one geometry:
-        (G, n_patches, 3, S, S) -> (G, n_tokens, D_text)."""
-        G, n = pv_stacked.shape[:2]
-        projected = project_image_features(self.params, self.cfg, pv_stacked.flatten(0, 1))
-        out = _pack_group(projected.view(G, n, *projected.shape[1:]), self.params["image_newline"], self.cfg, size)
+        (G, n_patches, 3, S, S) -> (G, n_tokens, D_text).  A `--dp`
+        subject's replicas each run their share of the group, padded by
+        repeating its last image (JAX :569-574)."""
+
+        def run(m, pv):
+            G, n = pv.shape[:2]
+            projected = project_image_features(m.params, self.cfg, pv.flatten(0, 1))
+            return _pack_group(projected.view(G, n, *projected.shape[1:]), m.params["image_newline"], self.cfg, size)
+
+        out = map_rows(self, run, pv_stacked)
         if out.shape[1] != n_tokens:
             raise ValueError(
                 f"anyres pack produced {out.shape[1]} features per image, expected {n_tokens} "
@@ -436,15 +447,22 @@ class LlavaNextModel:
         return_logits: bool = True,
     ) -> dict:
         """Full forward: {"captured": {hookpoint: (B, S, D)} under the
-        caller's spelling, "logits" with `return_logits`}."""
+        caller's spelling, "logits" with `return_logits`}.  Without
+        interventions, a `--dp` subject's replicas each run their share of
+        the rows (JAX :676-691); interventions, which may read the whole
+        batch, run it on this model's device."""
         embeds = self._embed_multimodal(batch)
         orig_by_stripped = {self._strip(c): c for c in capture}
         iv = {self._strip(k): v for k, v in interventions.items()} if interventions else None
-        out = llama_forward(
-            self.params["language_model"], self.cfg.text_config, inputs_embeds=embeds,
-            attention_mask=batch_mask(batch, self.device), capture=tuple(sorted(orig_by_stripped)),
-            interventions=iv, return_logits=return_logits,
-        )
+
+        def run(m, embeds, amask):
+            return llama_forward(
+                m.params["language_model"], self.cfg.text_config, inputs_embeds=embeds, attention_mask=amask,
+                capture=tuple(sorted(orig_by_stripped)), interventions=iv, return_logits=return_logits,
+            )
+
+        amask = batch_mask(batch, self.device)
+        out = run(self, embeds, amask) if iv else map_rows(self, run, embeds, amask)
         out["captured"] = {orig_by_stripped[k]: v for k, v in out["captured"].items()}
         return out
 
@@ -524,6 +542,7 @@ class LlavaNextModel:
             max_new_tokens=max_new_tokens, interventions=iv, intervene_prefill_only=intervene_prefill_only,
             eos_token_id=eos_token_id, inputs_embeds=embeds, attention_mask=batch.get("attention_mask"),
             do_sample=do_sample, temperature=temperature, top_p=top_p, seed=seed, mark=mark,
+            replicas=[r.params["language_model"] for r in replicas_of(self)],
         )
 
 

@@ -1,3 +1,3 @@
-from .coo import coo_extract_topk, coo_partition_splits, populated_empty
+from .coo import coo_extract_topk, coo_partition_splits, native_available, populated_empty
 
-__all__ = ["coo_extract_topk", "coo_partition_splits", "populated_empty"]
+__all__ = ["coo_extract_topk", "coo_partition_splits", "native_available", "populated_empty"]

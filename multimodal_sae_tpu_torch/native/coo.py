@@ -100,6 +100,12 @@ def _load() -> Optional[ctypes.CDLL]:
     return _lib
 
 
+def native_available() -> bool:
+    """Whether the native library is in use: built (or buildable) and not
+    disabled by `MMSAE_DISABLE_NATIVE=1`, which is read at each call."""
+    return _load() is not None
+
+
 def _i64p(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
 

@@ -117,8 +117,8 @@ def all_to_all_rows(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     return list(out.split(recv_rows))
 
 
-def staging_route(device: torch.device) -> str:
-    """How `all_to_all_rows` moves tensors of `device` under the default
-    group: "host" (pinned host memory) for CUDA tensors under gloo, else
-    "device"."""
-    return "host" if dist.get_backend() == "gloo" and torch.device(device).type == "cuda" else "device"
+def staging_route(device: torch.device, group=None) -> str:
+    """How CUDA tensors of `device` cross `group` (default: the world):
+    "host" (pinned host memory) under gloo, which has no all-to-all for
+    CUDA tensors, else "device"."""
+    return "host" if dist.get_backend(group) == "gloo" and torch.device(device).type == "cuda" else "device"

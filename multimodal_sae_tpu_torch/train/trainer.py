@@ -48,6 +48,14 @@ and writes the shared files, so the checkpoint has a world-1 run's layout.
 
 Under any multi-process run the preemption flag is OR-ed across ranks at
 each grad-acc boundary, so that every rank stops at the same one.
+
+Under `--tp N` (a subject with `tensor_parallel`) the ranks of a TP group
+capture together, and each trains the SAEs on the group's hidden states,
+which are equal on every rank of it: the data-parallel sums above run
+over the ranks that share `rank % N` (one per group), the preemption OR
+over every rank, and only the global rank 0 saves.  A `--dp` subject's
+capture gathers its replicas' rows on the trainer's device.  `fit` runs
+inside `maybe_trace("sae_train")` (utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -72,7 +80,7 @@ from ..ops.geometric_median import geometric_median
 from ..sae import Sae, forward, remove_gradient_parallel_to_decoder_directions, set_decoder_norm_to_unit_norm
 from ..parallel import barrier, gather_objects
 from .module_sharded import module_plan, scatter_hiddens
-from ..utils import natsorted, process_count, process_index, rank0_print
+from ..utils import maybe_trace, natsorted, process_count, process_index, rank0_print
 from ..utils.safetensors_io import load_file, save_file
 
 Params = Dict[str, torch.Tensor]
@@ -109,51 +117,54 @@ def _global_norm(grads: Params) -> torch.Tensor:
 ALL_REDUCE_CHUNK = 1 << 28
 
 
-def all_reduce_sum_(t: torch.Tensor) -> torch.Tensor:
-    """Sum `t` (contiguous) across ranks, in place, in chunks of
-    ALL_REDUCE_CHUNK elements."""
+def all_reduce_sum_(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum `t` (contiguous) across the ranks of `group` (default: all), in
+    place, in chunks of ALL_REDUCE_CHUNK elements."""
     for part in t.view(-1).split(ALL_REDUCE_CHUNK):
-        dist.all_reduce(part)
+        dist.all_reduce(part, group=group)
     return t
 
 
-def broadcast_from_rank0_(t: torch.Tensor) -> torch.Tensor:
-    """Rank 0's `t` (contiguous) on every rank, in place, in chunks."""
+def broadcast_from_rank0_(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The first rank of `group`'s `t` (contiguous; default: rank 0's) on
+    every rank of it, in place, in chunks."""
+    src = 0 if group is None else dist.get_global_rank(group, 0)
     for part in t.view(-1).split(ALL_REDUCE_CHUNK):
-        dist.broadcast(part, src=0)
+        dist.broadcast(part, src=src, group=group)
     return t
 
 
-def global_total_variance(x: torch.Tensor) -> torch.Tensor:
-    """sum((x - mean(x))^2) over every rank's rows of `x` (N, d), in two
-    passes: the global mean from the summed row sums and counts, then the
-    summed squared deviations (never E[x^2] - E[x]^2, which cancels)."""
+def global_total_variance(x: torch.Tensor, group=None) -> torch.Tensor:
+    """sum((x - mean(x))^2) over every rank's rows of `x` (N, d) in `group`,
+    in two passes: the global mean from the summed row sums and counts,
+    then the summed squared deviations (never E[x^2] - E[x]^2, which
+    cancels)."""
     sums = torch.cat([x.sum(dim=0, dtype=torch.float64), x.new_tensor([x.shape[0]], dtype=torch.float64)])
-    all_reduce_sum_(sums)
+    all_reduce_sum_(sums, group)
     mean = (sums[:-1] / sums[-1]).to(x.dtype)
-    return all_reduce_sum_(torch.sum((x - mean) ** 2).reshape(1))[0]
+    return all_reduce_sum_(torch.sum((x - mean) ** 2).reshape(1), group)[0]
 
 
-def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
-    """Every rank's rows of `x` (N_r, ...), concatenated in rank order; the
-    ranks' N_r may differ."""
-    world = process_count()
+def all_gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's rows of `x` (N_r, ...) in `group`, concatenated in rank
+    order; the ranks' N_r may differ."""
+    world = dist.get_world_size(group)
     n = torch.tensor([x.shape[0]], device=x.device)
     counts = [torch.zeros_like(n) for _ in range(world)]
-    dist.all_gather(counts, n)
+    dist.all_gather(counts, n, group=group)
     counts = [int(c) for c in counts]
     padded = x.new_zeros((max(counts),) + tuple(x.shape[1:]))
     padded[: x.shape[0]] = x
     parts = [torch.empty_like(padded) for _ in range(world)]
-    dist.all_gather(parts, padded)
+    dist.all_gather(parts, padded, group=group)
     return torch.cat([part[:c] for part, c in zip(parts, counts)])
 
 
-def any_across_ranks(mask: torch.Tensor) -> torch.Tensor:
-    """The OR of a bool mask across ranks, as a uint8 MAX (a bool
-    all-reduce's meaning depends on the backend and version)."""
+def any_across_ranks(mask: torch.Tensor, group=None) -> torch.Tensor:
+    """The OR of a bool mask across the ranks of `group`, as a uint8 MAX
+    (a bool all-reduce's meaning depends on the backend and version)."""
     as_u8 = mask.to(torch.uint8)
-    dist.all_reduce(as_u8, op=dist.ReduceOp.MAX)
+    dist.all_reduce(as_u8, op=dist.ReduceOp.MAX, group=group)
     return as_u8.bool()
 
 
@@ -164,6 +175,7 @@ def accumulate(
     cfg: TrainConfig,
     mark: Mark = None,
     data_parallel: bool = False,
+    group=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One batch of one SAE (the JAX trainer's `accumulate`, reference
     trainer.py:347-391): renormalise the decoder in place, run the
@@ -177,7 +189,7 @@ def accumulate(
     each chunk's losses take the global chunk's total variance, and this
     batch's gradients are summed across ranks before they join the
     accumulator and the clip; the fired masks and sums stay this rank's.
-    `mark(stage)` is passed to `forward` and called after "backward",
+    The ranks are `group`'s (default: all).  `mark(stage)` is passed to `forward` and called after "backward",
     "all_reduce" (data-parallel) and "clip"."""
     if cfg.sae.normalize_decoder:
         set_decoder_norm_to_unit_norm(params)
@@ -197,7 +209,7 @@ def accumulate(
     fired = torch.zeros(params["b_enc"].shape[0], dtype=torch.bool, device=hiddens.device)
     sums = {key: torch.zeros((), device=hiddens.device) for key in ("fvu", "auxk", "multi_topk_fvu")}
     for chunk in hiddens.reshape(micro, n // micro, hiddens.shape[-1]):
-        tv = global_total_variance(chunk.to(params["W_enc"].dtype)) if data_parallel else None
+        tv = global_total_variance(chunk.to(params["W_enc"].dtype), group) if data_parallel else None
         out = forward(params, chunk, cfg.sae, dead_mask if cfg.auxk_alpha > 0 else None, mark=mark,
                       total_variance=tv)
         loss = out.fvu + cfg.auxk_alpha * out.auxk_loss + out.multi_topk_fvu / 8
@@ -211,7 +223,7 @@ def accumulate(
     if data_parallel:
         with torch.no_grad():
             for name in sorted(params):
-                grad = all_reduce_sum_(params[name].grad)
+                grad = all_reduce_sum_(params[name].grad, group)
                 if held[name] is not None:
                     grad.add_(held[name])
         if mark is not None:
@@ -289,12 +301,20 @@ class SaeTrainer:
         self.cfg = cfg
         self.dataset = dataset
         self.input_widths = model.resolve_widths(cfg.hookpoints)
+        # The ranks that hold other rows of the global batch: under --tp, one
+        # rank of each TP group (those that share rank % N); else every rank.
+        layout = getattr(model, "tensor_parallel", None)
+        if layout is not None and cfg.distribute_modules:
+            raise ValueError("--distribute_modules with --tp is not supported: the hookpoints shard over ranks "
+                             "that each hold the whole subject")
+        self.dp_group = layout.dp_group if layout is not None else None
+        dp_size = layout.dp_size if layout is not None else process_count()
         # One plan entry per rank under distribute_modules (the hookpoints it
         # owns); None when every rank trains every hookpoint.
         self.module_plan = (
             module_plan(cfg.hookpoints, self.input_widths, process_count()) if cfg.distribute_modules else None
         )
-        self.data_parallel = process_count() > 1 and self.module_plan is None
+        self.data_parallel = dp_size > 1 and self.module_plan is None
         if self.module_plan is None:
             rank0_print(f"Training on modules: {cfg.hookpoints}")
         else:
@@ -333,7 +353,7 @@ class SaeTrainer:
             with torch.no_grad():
                 for sae in self.saes.values():
                     for name in sorted(sae.params):
-                        broadcast_from_rank0_(sae.params[name])
+                        broadcast_from_rank0_(sae.params[name], self.dp_group)
 
         self.global_step = 0
         self.opt_step = 0  # optimizer updates so far
@@ -391,7 +411,7 @@ class SaeTrainer:
         except ImportError:
             pass
 
-        with _save_on_preemption(self):
+        with maybe_trace("sae_train"), _save_on_preemption(self):
             self._fit_loop(ds, avg_metrics, wandb, log_fn, pbar)
         self.save()
         if pbar is not None:
@@ -433,8 +453,8 @@ class SaeTrainer:
 
     def _stop_requested(self) -> bool:
         """Whether any rank has caught a preemption signal (this process's
-        flag alone at world 1).  Every rank calls this at every grad-acc
-        boundary, so they all stop at the same one."""
+        flag alone at world 1).  Every rank, TP peers included, calls this at
+        every grad-acc boundary, so they all stop at the same one."""
         flag = getattr(self, "_preempted", False)
         if process_count() == 1:
             return flag
@@ -470,18 +490,19 @@ class SaeTrainer:
             hiddens = hiddens.reshape(-1, hiddens.shape[-1]).to(self.device)
             if self.global_step == 0 and not self._b_dec_initialized:
                 with torch.no_grad():
-                    sae.b_dec.copy_(geometric_median(all_gather_rows(hiddens) if self.data_parallel else hiddens))
+                    sae.b_dec.copy_(geometric_median(
+                        all_gather_rows(hiddens, self.dp_group) if self.data_parallel else hiddens))
             dead_mask = self._dead_mask_dev.get(name)
             if dead_mask is None:
                 dead_mask = self._refresh_dead_mask(name)
             fired, metrics = accumulate(sae.params, hiddens, dead_mask, cfg, mark=mark,
-                                        data_parallel=self.data_parallel)
+                                        data_parallel=self.data_parallel, group=self.dp_group)
             prev = self._fired_dev.get(name)
             self._fired_dev[name] = fired if prev is None else prev | fired
             if avg_metrics is not None and cfg.wandb_log_frequency:
                 denom = cfg.grad_acc_steps * cfg.micro_acc_steps * cfg.wandb_log_frequency
                 if self.data_parallel:  # each rank's sums are its shares of the global losses
-                    metrics = dict(zip(metrics, all_reduce_sum_(torch.stack(list(metrics.values())))))
+                    metrics = dict(zip(metrics, all_reduce_sum_(torch.stack(list(metrics.values())), self.dp_group)))
                 for key, value in metrics.items():
                     avg_metrics[name][key] += float(value) / denom
         self._b_dec_initialized = True
@@ -504,7 +525,7 @@ class SaeTrainer:
                 fired_dev = self._fired_dev.pop(name, None)
                 if fired_dev is not None:
                     if self.data_parallel:
-                        fired_dev = any_across_ranks(fired_dev)
+                        fired_dev = any_across_ranks(fired_dev, self.dp_group)
                     self._did_fire[name] |= fired_dev.cpu().numpy()
                 counts[self._did_fire[name]] = 0
                 self._did_fire[name][:] = False

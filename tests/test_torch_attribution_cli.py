@@ -129,10 +129,15 @@ def test_cli_refuses_options_of_later_slices(setup_dirs, tmp_path, flag, monkeyp
     from multimodal_sae_tpu_torch.launch.features import attribution_patching as port_cli
 
     ckpt, sae_dir, probe = setup_dirs
-    monkeypatch.setattr(port_cli, "load_subject_model", lambda *a, **kw: pytest.fail("the subject loaded"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port_cli.main(AttributionConfig(model=ckpt, data_path=probe, sae_path=sae_dir, selected_sae=HOOK,
-                                        save_dir=str(tmp_path / "out"), **flag), device="cpu")
+    cfg = AttributionConfig(model=ckpt, data_path=probe, sae_path=sae_dir, selected_sae=HOOK,
+                            save_dir=str(tmp_path / "out"), **flag)
+    if "remat" in flag:
+        monkeypatch.setattr(port_cli, "load_subject_model", lambda *a, **kw: pytest.fail("the subject loaded"))
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            port_cli.main(cfg, device="cpu")
+    else:  # ported: the subject loader refuses --tp 2 in one process, --dp 2 without two cards
+        with pytest.raises(ValueError, match="world size it divides" if "tp" in flag else "local devices"):
+            port_cli.main(cfg, device="cpu")
     assert not (tmp_path / "out").exists()
 
 

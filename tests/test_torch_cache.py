@@ -422,9 +422,12 @@ def test_cli_passes_the_int8_flags_on(tmp_path, flag, monkeypatch):
 
 @pytest.mark.parametrize("flag", [{"tp": 2}, {"dp": 2}])
 def test_cli_refuses_options_of_later_slices(flag):
+    """--tp and --dp are ported for checkpoint subjects (tests/test_torch_tp.py,
+    tests/test_torch_dp.py); a synthetic subject has no weights to shard or
+    copy and is refused."""
     from multimodal_sae_tpu_torch.launch.utils import load_subject_or_synthetic
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="synthetic"):
         load_subject_or_synthetic(CacheConfig(model="synthetic://4,1,8", **flag), device="cpu")
     model, _, _ = load_subject_or_synthetic(CacheConfig(model="synthetic://4,2,8", dp=1), device="cpu")
     assert model.hookpoint_names() == ["layers.0", "layers.1"]

@@ -282,5 +282,6 @@ def test_cache_image_cli_passes_the_int8_flags_on(llava_dir, flag, monkeypatch):
 def test_cache_image_cli_refuses_options_of_later_slices(llava_dir, flag):
     from multimodal_sae_tpu_torch.launch.cache import cache_image as port_cli
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # Ported: the subject loader refuses --tp 2 in one process, --dp 2 without two cards.
+    with pytest.raises(ValueError, match="world size it divides" if "tp" in flag else "local devices"):
         port_cli.main(CacheConfig(model=llava_dir, **flag), device="cpu")

@@ -104,8 +104,11 @@ PARALLEL_MODULES = (
     "multimodal_sae_tpu_torch.launch.cache.cache",
     "multimodal_sae_tpu_torch.parallel",
     "multimodal_sae_tpu_torch.parallel.collectives",
+    "multimodal_sae_tpu_torch.parallel.data_parallel",
     "multimodal_sae_tpu_torch.parallel.distributed",
     "multimodal_sae_tpu_torch.parallel.mesh",
+    "multimodal_sae_tpu_torch.parallel.tensor_parallel",
+    "multimodal_sae_tpu_torch.utils.profiling",
     "multimodal_sae_tpu_torch.train.module_sharded",
     "multimodal_sae_tpu_torch.utils.misc",
 )
@@ -293,15 +296,9 @@ def test_chip_smoke_fails_without_a_card(tmp_path, alone):
 LEFT_OUT = {
     # Left out on purpose: TPU search forms; the port's kth_value is exact.
     "ops": {"kth_value_bitwise", "kth_value_histogram"},
-    # The mesh and its shardings: one process drives one card.
-    # What --tp lacks: the tensor-parallel subject.
-    # What --dp lacks: the in-process replicas and their row placement.
-    "parallel": {"data_sharding", "get_mesh", "module_sharding", "replicated_sharding",
-                 "llama_param_specs", "shard_llama_params", "shard_subject_model", "replicate_on_mesh",
-                 "place_rows", "place_rows_padded", "replicate_saes", "shard_subject_model_dp"},
-    # Still to port (ROADMAP.md §1, "the rest").
-    "native": {"native_available"},
-    "utils": {"maybe_trace", "timed"},
+    # The mesh and its shardings: one process drives one card (several
+    # under --dp, as replicas, not a mesh).
+    "parallel": {"data_sharding", "get_mesh", "module_sharding", "replicated_sharding", "replicate_on_mesh"},
 }
 JAX_PACKAGES = ("", "agents", "clients", "features", "features.patching", "models", "native", "ops", "parallel",
                 "sae", "train", "utils")

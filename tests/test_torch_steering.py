@@ -335,11 +335,20 @@ def test_steering_cli_passes_the_int8_flags_on(cli_setup, flag, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [["--tp", "2"], ["--dp", "2"]])
-def test_steering_cli_refuses_unported_flags(cli_setup, flag):
+def test_steering_cli_refuses_unported_flags(cli_setup, flag, monkeypatch, tmp_path):
+    """--tp and --dp are ported: the CLI hands them to `load_subject_model`,
+    which refuses --tp 2 in a world of one process and --dp 2 without two
+    cards."""
+    from multimodal_sae_tpu_torch.launch import utils as launch_utils
     from multimodal_sae_tpu_torch.launch.features import steering as port_cli
+    from torch_tp_tiny import write_checkpoint
 
-    with pytest.raises(NotImplementedError, match="not ported"):
+    ckpt = write_checkpoint(tmp_path / "ckpt")
+    monkeypatch.setattr(port_cli, "load_subject_model", lambda _, **kw: launch_utils.load_subject_model(ckpt, **kw))
+    message = {"--tp": "world size it divides", "--dp": "local devices"}[flag[0]]
+    with pytest.raises(ValueError, match=message):
         port_cli.main(_cli_args(cli_setup, cli_setup / "port", *flag), device="cpu")
+    assert not (cli_setup / "port").exists()
 
 
 class StubClient:

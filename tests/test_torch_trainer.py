@@ -257,9 +257,11 @@ def test_cli_help_says_the_threshold_is_exact(capsys):
 
 @pytest.mark.parametrize("flag", [["--tp", "2"], ["--dp", "2"]], ids=lambda f: f[0].lstrip("-"))
 def test_cli_refuses_unported_flags(tmp_path, flag):
+    """--tp and --dp are ported for checkpoint subjects; a synthetic one,
+    which has no weights to shard or copy, is refused."""
     from multimodal_sae_tpu_torch.__main__ import run
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="synthetic"):
         run(_cli_args(tmp_path, "run", *flag), device="cpu")
     assert not (tmp_path / "run").exists()
 
