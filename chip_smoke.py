@@ -272,7 +272,22 @@ Phases; any failure raises and ends the run with a non-zero exit code:
    hidden states rank 0 trained on (the update within DP_TRAIN_UPDATE_REL)
    and one on the unsharded subject (reported), each rank's trace naming
    K1's and K3's kernels;
-14. a `kernels` JSON line, the card line, and the result line.
+14. the researcher tools (`multimodal_sae_tpu_torch/tools/`), each
+   tool's core timed and its launches counted: tools_path, after
+   steering_path on its subject and SAE: model_steering's `steer` on one
+   feature (the last prompt token's largest latent, clamp 10, TOOLS_NEW
+   tokens a generate), equal bit for bit to direct generates without and
+   with the same `clamp_features_max` intervention; probe_activations'
+   `probe` on the attribution prompt (2,432 ids), its top 10 and their
+   columns against float64 on the host (PROBE_*); text_activation_vis'
+   `feature_activations` for 16 features on that prompt, every written
+   activation equal to the encode's value and the page parsed;
+   image_tools_path, after image_attribution_path on its subject and SAE:
+   create_filters_from_attribution's `create_filters` on that phase's
+   saliency maps (no PNGs) against float64 pools, and `probe` on an
+   image-only prompt of one 480 x 640 image, against float64; the launches
+   a tool (K3, K1, K2's decode) and the peak in `tools_summary`;
+15. a `kernels` JSON line, the card line, and the result line.
 
 Needs one CUDA card; exits non-zero without one.  Imports nothing of JAX.
 Every rank process has a timeout (DP_PROC_TIMEOUT_S) and so does every
@@ -4066,7 +4081,295 @@ def phase_image_attribution_path(dev, card: str, model, sae) -> dict:
         "k2_decode": k2, "k2_splice": splice, "card": card,
     })
     return {"launches": {name: launches[name] + launches2[name] for name in launches}, "k2": k2, "splice": splice,
-            "pads": [pad, 0], "S2": S2, "S": S}
+            "pads": [pad, 0], "S2": S2, "S": S,
+            "saliency": {"maps": sal[:, 0], "prompt_ids": CHAT_HEAD + [cfg.image_token_index] + prompts[0] + CHAT_TAIL}}
+
+
+# ---- the researcher tools (multimodal_sae_tpu_torch/tools/) ------------------------
+
+TOOLS_NEW = 32
+# model_steering's core generates 32 tokens a generate, not the tool's 512,
+# to bound the time (decode steps are host-bound, 25-44 ms each).
+TOOLS_CLAMP = 10.0  # model_steering's default --clamp-value
+PROBE_CANDIDATES = 256
+PROBE_NEAR_TIE = 1e-4
+# The probe's ranking against float64 on the host: the card's fp32 mean
+# (one fp32 product of 4,096 terms a latent and token, summed over the
+# tokens) lies about 1e-6 of the largest mean from float64's, so at each
+# rank the float64 means of the card's feature and of float64's own must
+# agree within 1e-4 of the largest mean.  float64 recomputes the card's top
+# 256 candidates only (the host would take minutes for all 131,072 over
+# 2,432 tokens); nothing outside them can rank in the top 10 when the 10th
+# float64 mean exceeds the card's 256th by more than the margin, which is
+# checked.
+PROBE_ACT_REL = 1e-4
+# The chosen columns against float64: within 1e-4 of the largest float64
+# pre-activation of those columns (fp32 products of 4,096 terms).
+FILTERS_NEAR_TIE = 1e-6
+# create_filters' float32 pooling (numpy's) against float64's: at each
+# rank the float64 pools agree within 1e-6 of the largest |pool|.
+TOOLS_HEATMAP_FEATURES = 16
+TOOLS_FILTERS_TOP_K = 8
+
+
+def _probe_against_float64(features, acts, card_mean, hidden: torch.Tensor, sae, n: int, what: str) -> dict:
+    """The probe core's top-n `features` and their (n, tokens) `acts`
+    against a float64 recomputation on the host from the captured `hidden`
+    (tokens, d), over the card mean's top PROBE_CANDIDATES latents."""
+    cands = np.argsort(-card_mean, kind="stable")[:PROBE_CANDIDATES]
+    params = {name: t.detach() for name, t in sae.params.items()}
+    cols = torch.as_tensor(cands, device=params["W_enc"].device)
+    W = params["W_enc"][:, cols].double().cpu()
+    b_enc, b_dec = params["b_enc"][cols].double().cpu(), params["b_dec"].double().cpu()
+    lat = ((hidden.double().cpu() - b_dec) @ W + b_enc).clamp_min(0)  # (tokens, candidates)
+    mean64 = lat.mean(0).numpy()
+    order = np.argsort(-mean64, kind="stable")[:n]
+    margin = PROBE_NEAR_TIE * float(mean64.max())
+    position = {int(f): i for i, f in enumerate(cands)}
+    missing = [int(f) for f in features if int(f) not in position]
+    if missing:
+        raise AssertionError(f"{what}: features {missing} are not among the card mean's top {PROBE_CANDIDATES}")
+    got = np.array([mean64[position[int(f)]] for f in features])
+    rank_err = float(np.abs(got - mean64[order]).max())
+    if not rank_err <= margin:
+        raise AssertionError(f"{what}: the top {n} differ from float64's beyond near ties ({rank_err} > {margin})")
+    excluded_by = float(mean64[order[-1]] - card_mean[cands[-1]])
+    if not excluded_by > margin:
+        raise AssertionError(f"{what}: the {PROBE_CANDIDATES}th candidate's mean is within the margin of the "
+                             f"{n}th ({excluded_by})")
+    ref = lat[:, [position[int(f)] for f in features]].T.numpy()
+    act_err = float(np.abs(acts - ref).max())
+    act_bound = PROBE_ACT_REL * float(np.abs(ref).max())
+    if not act_err <= act_bound:
+        raise AssertionError(f"{what}: the chosen columns differ from float64's by {act_err} (bound {act_bound})")
+    return {"features": [int(f) for f in features], "equal_positions": int((np.asarray(features) == cands[order]).sum()),
+            "largest_rank_mean_err": rank_err, "near_tie_margin": margin, "exclusion_gap": excluded_by,
+            "max_abs_err_columns": act_err, "columns_bound": act_bound,
+            "mean_max_abs_err_candidates": float(np.abs(card_mean[cands] - mean64).max())}
+
+
+def _timed_core(fn):
+    """(result, ms, launches) of `fn()`: the kernel counts set to 0 first,
+    host time around it with the card synchronised."""
+    gc.collect()
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3, kernel_counts()
+
+
+def _tool_launches(launches: dict) -> dict:
+    return {name: launches[name] for name in ("flash_attention", "block_max", "gather_rows")}
+
+
+def _parse_heatmap(page: str) -> dict:
+    """Parse the heatmap page: its h2 headings and every span's alpha."""
+    import html.parser
+
+    class Page(html.parser.HTMLParser):
+        def __init__(self):
+            super().__init__()
+            self.headings, self.alphas, self._h2 = [], [], False
+
+        def handle_starttag(self, tag, attrs):
+            self._h2 = tag == "h2"
+            style = dict(attrs).get("style") or ""
+            if tag == "span":
+                self.alphas.append(float(style.rsplit(", ", 1)[1].rstrip(");")))
+
+        def handle_data(self, data):
+            if self._h2:
+                self.headings.append(data)
+                self._h2 = False
+
+    parser = Page()
+    parser.feed(page)
+    parser.close()
+    return {"headings": parser.headings, "alphas": parser.alphas}
+
+
+def phase_tools_path(dev, card: str, model, sae) -> dict:
+    """The cores of the card tools on the attribution phase's subject
+    (LLaMA-3-8B widths, 32 layers, bf16, flash attention, LM head) and SAE
+    (layers.24, 131,072 latents, k = 256, fp32, decoder): model_steering's
+    `steer` on one feature (a 74-id chat prompt through
+    `prepare_prompt_batch` and the stub chat template), probe_activations'
+    `probe` and text_activation_vis' `feature_activations` on the
+    attribution prompt (2,432 ids), each timed and its launches counted."""
+    from multimodal_sae_tpu_torch.features.steering import clamp_features_max
+    from multimodal_sae_tpu_torch.launch.utils import prepare_prompt_batch
+    from multimodal_sae_tpu_torch.tools import model_steering, probe_activations, text_activation_vis
+
+    hook, vocab = "layers.24", model.cfg.vocab_size
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(31)
+    chat = _StubChat(rng.integers(0, 128000, size=64))
+    _, _, batch = prepare_prompt_batch(model, None, chat, "(stub template)", use_chat_template=True)
+    S_p = model_steering.prompt_length(batch)
+    h = model.capture(batch, [hook])[hook]
+    feature = int(sae.encode(h[0, -1:]).top_indices[0, 0])  # the last prompt token's largest latent
+    del h
+    model_steering.steer(model, sae, batch, hook, feature, TOOLS_CLAMP, max_new_tokens=2)  # warm-up
+    (original, steered), steer_ms, steer_launches = _timed_core(
+        lambda: model_steering.steer(model, sae, batch, hook, feature, TOOLS_CLAMP, max_new_tokens=TOOLS_NEW))
+    # Two prefills of 32 attentions; the clamp (74 tokens, one chunk) two
+    # block-max levels and one decode; no decode step launches a kernel.
+    _expect_launches(steer_launches, {"flash_attention": 64, "block_max": 2, "gather_rows": 1},
+                     "model_steering's core")
+    direct = model.generate(batch, max_new_tokens=TOOLS_NEW)
+    direct_steered = model.generate(batch, max_new_tokens=TOOLS_NEW, intervene_prefill_only=True,
+                                    interventions={hook: clamp_features_max(sae, feature, k=TOOLS_CLAMP)})
+    if not (torch.equal(original, direct[:, S_p:]) and torch.equal(steered, direct_steered[:, S_p:])):
+        raise AssertionError("model_steering's core differs from direct generates")
+    texts = [model_steering.decode_first(chat, t) for t in (original, steered)]
+    for text in texts:
+        _answer_ids(text, TOOLS_NEW, vocab)
+    first_diff = [i for i in range(TOOLS_NEW) if int(original[0, i]) != int(steered[0, i])]
+
+    # The attribution prompt.
+    ids = np.random.default_rng(1).integers(0, vocab, size=(1, 2432))
+    interval = [0, 10]
+    probe_activations.probe(model, sae, {"input_ids": ids[:, :64]}, hook, interval)  # warm-up
+    (feats, acts, mean), probe_ms, probe_launches = _timed_core(
+        lambda: probe_activations.probe(model, sae, {"input_ids": ids}, hook, interval))
+    # A capture runs the 25 layers up to the hookpoint; no top-k.
+    _expect_launches(probe_launches, {"flash_attention": 25}, "probe_activations' core")
+    hidden = model.capture({"input_ids": ids}, [hook])[hook][0]
+    if acts.shape != (10, ids.shape[1]) or not np.isfinite(acts).all():
+        raise AssertionError(f"probe columns of shape {acts.shape}, or not finite")
+    probe_check = _probe_against_float64(feats, acts, mean, hidden, sae, interval[1], "the text probe")
+
+    vals, idx = sae.encode(hidden)
+    selected = torch.unique(idx.long()).cpu().numpy()
+    unselected = np.setdiff1d(np.arange(sae.num_latents), selected)
+    hm_feats = sorted(rng.choice(selected, TOOLS_HEATMAP_FEATURES - 2, replace=False).tolist()
+                      + rng.choice(unselected, 2, replace=False).tolist())
+    text_activation_vis.feature_activations(model, {hook: sae}, ids[0, :64].tolist(), {hook: hm_feats})  # warm-up
+    columns, heatmap_ms, heatmap_launches = _timed_core(
+        lambda: text_activation_vis.feature_activations(model, {hook: sae}, ids[0].tolist(), {hook: hm_feats}))
+    # The capture's 25 attentions; the encode's two block-max levels.
+    _expect_launches(heatmap_launches, {"flash_attention": 25, "block_max": 2}, "text_activation_vis' core")
+    columns = columns[hook]
+    # Every written activation is the encode's value: idx and vals on the
+    # host, each feature's column scattered there.
+    idx_h, vals_h = idx.cpu().numpy(), vals.cpu().numpy()
+    want = np.zeros((ids.shape[1], len(hm_feats)), np.float32)
+    for j, f in enumerate(hm_feats):
+        rows, slots = np.nonzero(idx_h == f)
+        want[rows, j] = vals_h[rows, slots]
+    if not np.array_equal(columns, want):
+        raise AssertionError("text_activation_vis' columns differ from the encode's values")
+    page = text_activation_vis.HTML_START + "".join(
+        text_activation_vis.generate_feature_html(f"{hook}_feature{f}", [str(t) for t in ids[0]], columns[:, j],
+                                                  f"explanation {f}")
+        for j, f in enumerate(hm_feats)) + text_activation_vis.HTML_END
+    parsed = _parse_heatmap(page)
+    if (parsed["headings"] != [f"{hook}_feature{f}" for f in hm_feats]
+            or len(parsed["alphas"]) != len(hm_feats) * ids.shape[1]
+            or not all(0.0 <= a <= 1.0 for a in parsed["alphas"])):
+        raise AssertionError("the heatmap page does not parse to its features' spans")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del hidden, vals, idx
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {"model_steering": _tool_launches(steer_launches), "probe_activations": _tool_launches(probe_launches),
+                "text_activation_vis": _tool_launches(heatmap_launches)}
+    emit({
+        "phase": "tools_path", "subject": "LLaMA-3-8B widths, 32 layers, bf16, flash attention, LM head",
+        "sae": "layers.24, 4096 -> 131072 latents, k=256, fp32, decoder",
+        "model_steering": {"prompt_tokens": S_p, "feature": feature, "clamp": TOOLS_CLAMP, "new_tokens": TOOLS_NEW,
+                           "ms": steer_ms, "equal_to_direct_generates": True,
+                           "first_step_steered_differs": first_diff[0] if first_diff else None},
+        "probe_activations": {"prompt_tokens": ids.shape[1], "interval": interval, "ms": probe_ms,
+                              "float64_check": probe_check},
+        "text_activation_vis": {"prompt_tokens": ids.shape[1], "features": hm_feats, "ms": heatmap_ms,
+                                "written_equal_to_encode": True, "nonzero": int(np.count_nonzero(columns)),
+                                "page_bytes": len(page), "spans": len(parsed["alphas"])},
+        "launches": launches, "peak_gb": peak_gb, "card": card,
+    })
+    total = {name: steer_launches[name] + probe_launches[name] + heatmap_launches[name] for name in steer_launches}
+    return {"launches": total, "per_tool": launches, "ms": {"model_steering": steer_ms, "probe_activations": probe_ms,
+                                                            "text_activation_vis": heatmap_ms}, "peak_gb": peak_gb}
+
+
+def _filters_against_float64(filters, maps: np.ndarray, tokens, image_token: int, trim: bool, k: int) -> dict:
+    """create_filters' ranking of one hookpoint's (features, tokens) map
+    against float64 pools: the image span, the placeholder's expansion,
+    and the text after it (its last 4 positions dropped with `trim`)."""
+    prev = list(tokens).index(image_token)
+    n_image = maps.shape[1] - (len(tokens) - 1)
+    m = maps.astype(np.float64)
+    image_pool = m[:, prev:prev + n_image].mean(1)
+    text_pool = m[:, prev + n_image:maps.shape[1] - (4 if trim else 0)].mean(1)
+    errs = []
+    for got, pool in ((filters[:k], image_pool), (filters[k:], text_pool)):
+        want = np.argsort(-pool, kind="stable")[:k]
+        errs.append(float(np.abs(pool[np.asarray(got)] - pool[want]).max()))
+        margin = FILTERS_NEAR_TIE * float(np.abs(pool).max())
+        if not errs[-1] <= margin:
+            raise AssertionError(f"create_filters' ranking differs from float64's beyond near ties ({errs[-1]})")
+    return {"image_tokens": n_image, "largest_rank_pool_err": errs, "near_tie_rel": FILTERS_NEAR_TIE}
+
+
+def phase_image_tools_path(dev, card: str, model, sae, saliency: dict) -> dict:
+    """The tools on the image steering phase's LLaVA-NeXT (llama3-llava-next-8b
+    widths, 32 text layers, bf16, flash attention) and SAE: create_filters_
+    from_attribution's `create_filters` (no PNGs: the card's machine has no
+    PIL) on the image attribution phase's saliency maps, and
+    probe_activations' `probe` on an image-only prompt ([BOS, <image>]) of
+    one 480 x 640 image from the image steering phase's seeded pixels, the
+    leading BOS skipped as the tool skips it for a LLaMA subject."""
+    from multimodal_sae_tpu_torch.tools import create_filters_from_attribution, probe_activations
+
+    hook, cfg = "model.layers.24", model.cfg
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tokens = saliency["prompt_ids"][1:]
+    names = {EOT: create_filters_from_attribution.EOT_MARKER}
+    tokens_str = [names.get(t, str(t)) for t in tokens]
+    maps = {hook: saliency["maps"][:, 1:]}  # the token axis without BOS
+    t0 = time.perf_counter()
+    filters, pages, grids = create_filters_from_attribution.create_filters(
+        maps, tokens, tokens_str, cfg.image_token_index, top_k=TOOLS_FILTERS_TOP_K)
+    filters_ms = (time.perf_counter() - t0) * 1e3
+    filters_check = _filters_against_float64(filters[hook], maps[hook], tokens, cfg.image_token_index, True,
+                                             TOOLS_FILTERS_TOP_K)
+    if (len(filters[hook]) != 2 * TOOLS_FILTERS_TOP_K or pages[hook].count("<p>feature_") != TOOLS_FILTERS_TOP_K
+            or [g.shape for _, g in grids[hook]] != [(24, 24)] * TOOLS_FILTERS_TOP_K):
+        raise AssertionError("create_filters' outputs have the wrong counts or shapes")
+
+    batch = _image_batch(cfg, [UNIFORM_HW], np.random.default_rng(13))
+    interval = [0, 10]
+    probe_activations.probe(model, sae, batch, hook, interval, skip_bos=True)  # warm-up
+    (feats, acts, mean), probe_ms, launches = _timed_core(
+        lambda: probe_activations.probe(model, sae, batch, hook, interval, skip_bos=True))
+    _expect_launches(launches, {"flash_attention": 25}, "the image probe's core")
+    hidden = model.capture(batch, [hook])[hook][0, 1:]
+    if acts.shape != (10, hidden.shape[0]) or not np.isfinite(acts).all():
+        raise AssertionError(f"image probe columns of shape {acts.shape}, or not finite")
+    probe_check = _probe_against_float64(feats, acts, mean, hidden, sae, interval[1], "the image probe")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del hidden
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({
+        "phase": "image_tools_path",
+        "subject": "llama3-llava-next-8b widths (CLIP-L/336, projector, 32 text layers, LM head), bf16, flash attention",
+        "create_filters_from_attribution": {"features": int(maps[hook].shape[0]), "tokens": int(maps[hook].shape[1]),
+                                            "top_k": TOOLS_FILTERS_TOP_K, "ms": filters_ms, "filters": filters[hook],
+                                            "float64_check": filters_check},
+        "probe_activations": {"image": list(UNIFORM_HW), "tokens": int(batch["input_ids"].shape[1]),
+                              "interval": interval, "ms": probe_ms, "float64_check": probe_check},
+        "launches": {"probe_activations": _tool_launches(launches), "create_filters_from_attribution": {}},
+        "peak_gb": peak_gb, "card": card,
+    })
+    return {"launches": launches, "ms": {"create_filters_from_attribution": filters_ms, "probe_activations": probe_ms},
+            "peak_gb": peak_gb}
 
 
 # ---- multi-process phases: ranks as subprocesses of this script --------------------
@@ -5743,6 +6046,7 @@ def main() -> int:
     general = phase_general_attribution_path(dev, card, model, sae)
     stats = phase_stats_path(dev, card, model, sae, loaded["records"], loaded["selected"])
     steering = phase_steering_path(dev, card, model, sae)
+    tools = phase_tools_path(dev, card, model, sae)
     del model, sae
     loader_launches = loaded["launches"]
     del loaded
@@ -5773,7 +6077,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     image_steering = phase_image_steering_path(dev, card)
-    image_attribution = phase_image_attribution_path(dev, card, image_steering.pop("model"), image_steering.pop("sae"))
+    llava, llava_sae = image_steering.pop("model"), image_steering.pop("sae")
+    image_attribution = phase_image_attribution_path(dev, card, llava, llava_sae)
+    image_tools = phase_image_tools_path(dev, card, llava, llava_sae, image_attribution.pop("saliency"))
+    del llava, llava_sae
     gc.collect()
     torch.cuda.empty_cache()
     # K3 at the image attribution suffix's shapes: a chunk of 8 features on
@@ -5791,7 +6098,8 @@ def main() -> int:
             steering["launches"], int8_subject["launches"], train["launches"], dp_train["launches"],
             module_train["launches"], image["launches"], image_train["launches"], image_steering["launches"],
             image_attribution["launches"], int8_image["launches"], clip["launches"], tp_cache["launches"],
-            dp_replicas["launches"], tp_subject["launches"], tp_train["launches"])
+            dp_replicas["launches"], tp_subject["launches"], tp_train["launches"], tools["launches"],
+            image_tools["launches"])
     per_rank = {phase: [{name: counts[name] for name in ("block_max", "flash_attention")} for counts in run["per_rank"]]
                 for phase, run in (("dp_cache_path", dp_cache), ("nccl_path", nccl), ("dp_train_path", dp_train),
                                    ("module_sharded_train_path", module_train), ("tp_cache_path", tp_cache),
@@ -5874,6 +6182,15 @@ def main() -> int:
         names = parts.get(entry["name"], (entry["name"],))
         entry["launches_in_phases_of_slices_10_and_11"] = {
             phase: sum(run["launches"][name] for name in names) for phase, run in new_phases.items()}
+    for entry in kernels_line["kernels"]:
+        names = parts.get(entry["name"], (entry["name"],))
+        entry["launches_in_tools_path"] = {
+            phase: sum(run["launches"][name] for name in names)
+            for phase, run in (("tools_path", tools), ("image_tools_path", image_tools))}
+    emit({"phase": "tools_summary", "ms": {**tools["ms"], **{f"image_{k}": v for k, v in image_tools["ms"].items()}},
+          "launches": {"tools_path": tools["per_tool"], "image_tools_path": {"probe_activations": {
+              name: image_tools["launches"][name] for name in ("flash_attention", "block_max", "gather_rows")}}},
+          "peak_gb": max(tools["peak_gb"], image_tools["peak_gb"])})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit(kernels_line)
     print(card_line(), flush=True)

@@ -112,6 +112,15 @@ PARALLEL_MODULES = (
     "multimodal_sae_tpu_torch.train.module_sharded",
     "multimodal_sae_tpu_torch.utils.misc",
 )
+TOOLS_MODULES = (
+    "multimodal_sae_tpu_torch.tools",
+    "multimodal_sae_tpu_torch.tools.create_filters_from_attribution",
+    "multimodal_sae_tpu_torch.tools.gpt4o_consistency",
+    "multimodal_sae_tpu_torch.tools.label_explanation",
+    "multimodal_sae_tpu_torch.tools.model_steering",
+    "multimodal_sae_tpu_torch.tools.probe_activations",
+    "multimodal_sae_tpu_torch.tools.text_activation_vis",
+)
 MM_MODULES = (
     "multimodal_sae_tpu_torch.config",
     "multimodal_sae_tpu_torch.launch.features.attribution_patching",
@@ -133,6 +142,8 @@ def _imports(path: Path):
 def test_no_jax_imports_in_the_port_or_chip_smoke():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    assert {f"{PORT.name}.tools.{f.stem}" for f in files if f.parent.name == "tools" and f.stem != "__init__"} == set(
+        TOOLS_MODULES[1:])
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f) if m.split(".")[0] in FORBIDDEN]
     assert bad == []
 
@@ -143,7 +154,7 @@ def test_importing_every_module_leaves_jax_unloaded():
         "import multimodal_sae_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        f"assert set({ATTRIBUTION_MODULES + IMAGE_MODULES + LOADER_MODULES + TRAIN_MODULES + EXPLAIN_MODULES + GENERATE_MODULES + MM_MODULES + PARALLEL_MODULES!r})"
+        f"assert set({ATTRIBUTION_MODULES + IMAGE_MODULES + LOADER_MODULES + TRAIN_MODULES + EXPLAIN_MODULES + GENERATE_MODULES + MM_MODULES + PARALLEL_MODULES + TOOLS_MODULES!r})"
         " <= set(names)\n"
         "import chip_smoke\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
@@ -191,7 +202,7 @@ def test_explain_score_attribution_and_clip_modules_import_with_host_libraries_b
     code = (
         "import importlib, sys\n"
         f"for name in {BLOCKED!r}: sys.modules[name] = None\n"
-        f"for n in {EXPLAIN_MODULES + ATTRIBUTION_MODULES + GENERATE_MODULES + MM_MODULES + PARALLEL_MODULES!r}:"
+        f"for n in {EXPLAIN_MODULES + ATTRIBUTION_MODULES + GENERATE_MODULES + MM_MODULES + PARALLEL_MODULES + TOOLS_MODULES!r}:"
         " importlib.import_module(n)\n"
         "import torch\n"
         "from multimodal_sae_tpu_torch.models import clip_full\n"
@@ -234,6 +245,7 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
     from multimodal_sae_tpu_torch.models.llama import KVCache
     from multimodal_sae_tpu_torch.models.llava_next import load_llava_next
     from multimodal_sae_tpu_torch.sae import Sae
+    from multimodal_sae_tpu_torch.tools import model_steering, probe_activations, text_activation_vis
     from multimodal_sae_tpu_torch.train import DataCollatorForImage, SaeTrainer
 
     tiny = LlamaConfig(vocab_size=8, hidden_size=8, intermediate_size=8, num_hidden_layers=1,
@@ -266,6 +278,10 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
         lambda: clip_metric(str(tmp_path / "clip")),
         lambda: KVCache.init(tiny, 1, 4),
         lambda: steering_cli.main(["--text", "hi", "--sae-path", str(tmp_path), "--filters", str(tmp_path / "f.json")]),
+        lambda: model_steering.main(["--sae-path", str(tmp_path), "--module-name", "layers.0", "-f", "1", "-t", "hi"]),
+        lambda: probe_activations.main(["--sae-path", str(tmp_path), "--module-name", "layers.0", "-t", "hi"]),
+        lambda: text_activation_vis.main(["--model-path", str(tmp_path), "--sae-path", str(tmp_path),
+                                          "--explanation-dir", str(tmp_path), "--text", "hi"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
