@@ -287,7 +287,22 @@ Phases; any failure raises and ends the run with a non-zero exit code:
    saliency maps (no PNGs) against float64 pools, and `probe` on an
    image-only prompt of one 480 x 640 image, against float64; the launches
    a tool (K3, K1, K2's decode) and the peak in `tools_summary`;
-15. a `kernels` JSON line, the card line, and the result line.
+15. `--remat` and `--distribute_modules` under `--tp` (slice 13):
+   remat_attribution_path, after general_attribution_path on its subject,
+   SAE and prompt: one flash chunk of the last position's 8 pool features
+   without and with `--remat` (equal bits, K3's forward 7 and 14 times,
+   its backward 7 each; ms and peak of each), eager attention at fb 8 with
+   remat in one chunk against fb 2 without within ATTRIBUTION_L2_REL (the
+   no-remat fb 8 peak reckoned from fb 2's), and one general feature each
+   way (equal bits, K3's forward 64 and 71); remat_attribution_path_image_row,
+   after image_tools_path: the image probe row's chunk each way, equal
+   bits; tp_module_sharded_train_path, after tp_train_path: `SaeTrainer` at
+   --tp 2 with `distribute_modules` as two gloo ranks (`--rank
+   tp_module_train`) on module_sharded_train_path's subject and hookpoints
+   with the full-width SAE and AuxK, each rank one hookpoint, its SAE
+   equal bit for bit to the flagless --tp 2 trainer's, tokens/s and the
+   peak a rank;
+16. a `kernels` JSON line, the card line, and the result line.
 
 Needs one CUDA card; exits non-zero without one.  Imports nothing of JAX.
 Every rank process has a timeout (DP_PROC_TIMEOUT_S) and so does every
@@ -2764,6 +2779,197 @@ def phase_general_attribution_path(dev, card: str, model, sae24) -> dict:
     return {"launches": launches, "dvals": dvals, "k3_bwd_b1": k3_bwd}
 
 
+# ---- rematerialisation (`--remat`, LlamaConfig.remat) -------------------------------
+
+
+def _subject_with(model, **text):
+    """The same subject (its parameters shared) with the language model's
+    config fields `text` replaced (`remat`, `flash_attention`)."""
+    import dataclasses
+
+    cfg = model.cfg
+    if hasattr(cfg, "text_config"):
+        return type(model)(model.params, dataclasses.replace(cfg, text_config=dataclasses.replace(cfg.text_config,
+                                                                                                  **text)))
+    return type(model)(model.params, dataclasses.replace(cfg, **text))
+
+
+def _counted_chunk(step, model, chunk: torch.Tensor) -> dict:
+    """One attribution chunk of `step` with its suffix on `model`: the
+    saliency, the launches, the device ms (CUDA events) and the peak, whole
+    and above the memory held before the chunk."""
+    step.model = model
+    gc.collect()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    sal = step(chunk)
+    end.record()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return {"sal": sal, "launches": kernel_counts(), "ms": start.elapsed_time(end), "peak_gb": peak / 1e9,
+            "peak_above_held_gb": (peak - held) / 1e9}
+
+
+def _remat_pair(step, model, chunk: torch.Tensor, n_suffix: int, what: str) -> dict:
+    """`step`'s chunk with the suffix on `model` without and with remat,
+    each after one warm-up chunk: the saliency equal bit for bit (raises
+    otherwise), K3's forward n_suffix and 2 n_suffix launches, its backward
+    n_suffix each kernel both times.  Returns each run's ms, peak and
+    launches."""
+    runs = {}
+    for tag, subject in (("no_remat", _subject_with(model, remat=False)),
+                         ("remat", _subject_with(model, remat=True))):
+        step.model = subject
+        step(chunk)  # warm-up
+        runs[tag] = _counted_chunk(step, subject, chunk)
+    step.model = model
+    for tag, fwd in (("no_remat", n_suffix), ("remat", 2 * n_suffix)):
+        _expect_launches(runs[tag]["launches"], {"flash_attention": fwd, "flash_attention_bwd_delta": n_suffix,
+                                                 "flash_attention_bwd_dkdv": n_suffix,
+                                                 "flash_attention_bwd_dq": n_suffix, "splice_decode": 1,
+                                                 "block_max": 0, "gather_rows": 0, "decode_dvals": 0},
+                         f"{what} ({tag})")
+    a, b = runs["no_remat"].pop("sal"), runs["remat"].pop("sal")
+    if not torch.equal(a, b):
+        raise AssertionError(f"{what}: the saliency with remat differs from without it by up to "
+                             f"{(a - b).abs().max().item()}")
+    if not a.any():
+        raise AssertionError(f"{what}: the chunk's saliency is all 0")
+    runs["equal_bits"] = True
+    runs["remat_over_no_remat_ms"] = runs["remat"]["ms"] / runs["no_remat"]["ms"]
+    runs["peak_saved_gb"] = runs["no_remat"]["peak_gb"] - runs["remat"]["peak_gb"]
+    return runs
+
+
+def phase_remat_attribution_path(dev, card: str, model, sae) -> dict:
+    """`--remat` on the attribution phase's subject (LLaMA-3-8B widths, 32
+    layers, LM head, bf16) and SAE at layers.24 (131,072 latents, k = 256),
+    on its 2,432-id prompt: (a) with flash attention, one chunk of the 8
+    features of the last position's pool without and with remat, equal bit
+    for bit, K3's forward 7 and 14 times, its backward 7 times each kernel,
+    ms and peak of each; (b) with eager attention (the CLI's default) and
+    remat, `fast_attribution_maps` at feature_batch 8 in one chunk (one
+    splice: the out-of-memory loop did not halve it), against eager
+    attention without remat at feature_batch 2 within ATTRIBUTION_L2_REL,
+    the measured peak beside the one reckoned for fb 8 without remat;
+    (d) `general_attribution_maps` for one feature without and with remat,
+    equal bit for bit.  Counted: (b)'s remat run and (d)'s remat feature."""
+    from functools import partial
+
+    from multimodal_sae_tpu_torch.features.patching import (
+        build_fast_attribution, fast_attribution_maps, general_attribution_maps, get_logit_diff,
+    )
+
+    t_phase = time.perf_counter()
+    hook, S, n_suffix = "layers.24", 2432, 32 - 25
+    rng = np.random.default_rng(1)  # the attribution phase's prompt
+    batch = {"input_ids": rng.integers(0, model.cfg.vocab_size, size=(1, S))}
+    metric = partial(get_logit_diff, answer_token_indices=torch.tensor([[1000, 2000]], device=dev))
+    step = build_fast_attribution(model, hook, sae, batch, metric)
+    inside = step.wide_idx[-1, :8].long().tolist()
+    flash = _remat_pair(step, model, torch.tensor(inside), n_suffix, "flash attention chunk")
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) eager attention at fb 8 with remat, then without remat at fb 2.
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    eager = {}
+    launches = None
+    for tag, remat, fb in (("remat_fb8", True, 8), ("no_remat_fb2", False, 2)):
+        subject = _subject_with(model, flash_attention=False, remat=remat)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        out = fast_attribution_maps(subject, hook, sae, batch, metric, inside, feature_batch=fb, progress=False)
+        torch.cuda.synchronize()
+        eager[tag] = {"s": time.perf_counter() - t0, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "launches": kernel_counts(), "sal": _saliency(out, hook)}
+        if launches is None:
+            launches = eager[tag]["launches"]
+        del subject, out
+        torch.cuda.empty_cache()
+    chunks = {tag: run["launches"]["splice_decode"] for tag, run in eager.items()}
+    if chunks != {"remat_fb8": 1, "no_remat_fb2": 4}:
+        raise AssertionError(f"eager attention ran {chunks} chunks: the out-of-memory loop halved a batch")
+    for tag, run in eager.items():
+        if run["launches"]["flash_attention"] or run["launches"]["flash_attention_bwd_dq"]:
+            raise AssertionError(f"eager attention ({tag}) launched K3: {run['launches']}")
+    eager_rel = [float(np.linalg.norm(a - b) / np.linalg.norm(b))
+                 for a, b in zip(eager["remat_fb8"].pop("sal"), eager["no_remat_fb2"].pop("sal"))]
+    if not max(eager_rel) <= ATTRIBUTION_L2_REL:
+        raise AssertionError(f"eager attention with remat at fb 8 against fb 2 without: relative L2 {eager_rel}")
+    # Without remat the tape grows with the chunk: fb 8 keeps 4 times fb 2's.
+    eager["reckoned_no_remat_fb8_peak_gb"] = held_gb + 4 * (eager["no_remat_fb2"]["peak_gb"] - held_gb)
+    F, H = 8, model.cfg.num_attention_heads
+    eager["reckoned_no_remat_fb8_attention_tape_gb"] = n_suffix * F * H * S * S * (4 + 2) / 1e9
+    eager["held_gb"] = held_gb
+    eager["saliency_l2_rel_fb8_remat_vs_fb2"] = eager_rel
+    eager["l2_rel_bound"] = ATTRIBUTION_L2_REL
+
+    # (d) one general feature without and with remat.
+    general = {}
+    for tag, remat in (("no_remat", False), ("remat", True)):
+        subject = _subject_with(model, remat=remat)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        out = general_attribution_maps(subject, {hook: sae}, batch, metric, inside[:1], progress=False)
+        torch.cuda.synchronize()
+        general[tag] = {"s": time.perf_counter() - t0, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                        "launches": kernel_counts(), "sal": _saliency(out, hook)}
+        del subject, out
+    counted = {name: launches[name] + general["remat"]["launches"][name] for name in launches}
+    for tag, fwd in (("no_remat", 64), ("remat", 64 + n_suffix)):
+        # The clean forward and the feature's: 32 attentions, two block-max
+        # levels and a decode each; the backward through the 7 layers above
+        # the splice (recomputed under remat), which stops at the splice's
+        # delta (no dvals: no splice lies below it).
+        _expect_launches(general[tag]["launches"], {"flash_attention": fwd, "flash_attention_bwd_delta": n_suffix,
+                                                    "flash_attention_bwd_dkdv": n_suffix,
+                                                    "flash_attention_bwd_dq": n_suffix, "block_max": 4,
+                                                    "gather_rows": 2},
+                         f"general feature ({tag})")
+    a, b = general["no_remat"].pop("sal"), general["remat"].pop("sal")
+    if not np.array_equal(a, b) or not a.any():
+        raise AssertionError(f"the general feature with remat differs from without it by up to {np.abs(a - b).max()}")
+    general["equal_bits"] = True
+    emit({
+        "phase": "remat_attribution_path",
+        "subject": "LLaMA-3-8B widths, 32 layers, bf16, LM head", "hookpoint": hook, "prompt_tokens": S,
+        "sae": "4096 -> 131072 latents, k=256, fp32, decoder", "features": inside,
+        "flash_chunk_fb8": flash, "eager": eager, "general_one_feature": general,
+        "seconds": time.perf_counter() - t_phase, "card": card,
+    })
+    return {"launches": counted, "flash": flash}
+
+
+def phase_remat_image_row(dev, card: str, model, sae, probe: dict) -> dict:
+    """(c) of `--remat`: one chunk of image_attribution_path's probe row
+    (2,358 tokens, its 8 pool features) on the LLaVA-NeXT subject without
+    and with remat, equal bit for bit, K3's forward 7 and 14 times."""
+    from multimodal_sae_tpu_torch.features.patching import build_fast_attribution
+
+    t_phase = time.perf_counter()
+    step = build_fast_attribution(model, "model.layers.24", sae, probe["batch"], probe["metric"])
+    runs = _remat_pair(step, model, torch.tensor(probe["inside"]), 32 - 25, "image row chunk")
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "remat_attribution_path_image_row", "tokens": probe["tokens"], "features": probe["inside"],
+          "subject": "llama3-llava-next-8b widths, 32 text layers, bf16, flash attention", "chunk_fb8": runs,
+          "seconds": time.perf_counter() - t_phase, "card": card})
+    return runs
+
+
 def _tree_to(tree, device):
     """A copy of a nest of dicts and lists of tensors on `device`."""
     if isinstance(tree, dict):
@@ -4082,6 +4288,7 @@ def phase_image_attribution_path(dev, card: str, model, sae) -> dict:
     })
     return {"launches": {name: launches[name] + launches2[name] for name in launches}, "k2": k2, "splice": splice,
             "pads": [pad, 0], "S2": S2, "S": S,
+            "remat_probe": {"batch": batch, "metric": metric, "inside": inside, "tokens": S},
             "saliency": {"maps": sal[:, 0], "prompt_ids": CHAT_HEAD + [cfg.image_token_index] + prompts[0] + CHAT_TAIL}}
 
 
@@ -5865,6 +6072,106 @@ class _ReplayedCaptures:
         return {self.hook: self.hiddens.pop(0).to(self.dev)}
 
 
+TP_MS_BATCHES = 4
+
+
+def rank_tp_module_train(args: dict) -> dict:
+    """One rank of tp_module_sharded_train_path: `SaeTrainer` at --tp 2 with
+    `distribute_modules` on MS_HOOKS (this rank trains one of them on its
+    TP group's hidden states; no row moves), TP_MS_BATCHES batches of one
+    2,048-id row, timed; then the --tp 2 trainer without the flag on the
+    same batches for this rank's hookpoint (the other hookpoint captured
+    too, so that both ranks run the same layers and collectives; the SAE
+    seeded by its index among MS_HOOKS, as the flagless trainer over both
+    seeds it).  Returns whether the two SAEs are equal bit for bit."""
+    from multimodal_sae_tpu_torch.parallel import process_index
+    from multimodal_sae_tpu_torch.sae import Sae
+    from multimodal_sae_tpu_torch.train import SaeTrainer
+    from multimodal_sae_tpu_torch.train.trainer import _iter_batches
+
+    dev = torch.device("cuda")
+    model = _tp_subject(MS_LAYERS, dev)
+    rows = _dp_train_rows(model.cfg.vocab_size)[:TP_MS_BATCHES]
+    trainer = SaeTrainer(_ms_train_config(1, args["run_dir"]), rows, model, device=dev)
+    hooks = list(trainer.saes)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gc.collect()
+    reset_kernel_counts()
+    step_ms = []
+    for i, batch in enumerate(_iter_batches(rows, 1)):
+        if i == 1:
+            torch.cuda.synchronize()
+            t_steady = time.perf_counter()
+        marks = StageMarks()
+        trainer.step(batch, mark=marks)
+        step_ms.append(marks.ms()["total"])
+    torch.cuda.synchronize()
+    steady_s = time.perf_counter() - t_steady
+    out = {"rank": process_index(), "hooks": hooks, "plan": trainer.module_plan,
+           "tokens_per_s": (len(step_ms) - 1) * 2048 / steady_s, "step_ms": step_ms,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": kernel_counts(),
+           "opt_step": trainer.opt_step}
+    (hook,) = hooks
+    sharded = {name: t.detach().cpu() for name, t in trainer.saes[hook].params.items()}
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    capture = model.capture
+    model.capture = lambda batch, hookpoints: capture(batch, list(MS_HOOKS))
+    cfg = _ms_train_config(1, args["run_dir"] + "_reference")
+    cfg.distribute_modules, cfg.hookpoints = False, [hook]
+    reference = SaeTrainer(cfg, rows, model, device=dev)
+    seeded = Sae(4096, cfg.sae, seed=MS_HOOKS.index(hook), device=dev)
+    with torch.no_grad():
+        for name, t in reference.saes[hook].params.items():
+            t.copy_(seeded.params[name])
+    del seeded
+    for batch in _iter_batches(rows, 1):
+        reference.step(batch)
+    diff = {name: (t.detach().cpu() - sharded[name]).abs().max().item()
+            for name, t in reference.saes[hook].params.items()}
+    out["equal_bits"] = all(torch.equal(t.detach().cpu(), sharded[name])
+                            for name, t in reference.saes[hook].params.items())
+    out["max_abs_diff"] = diff
+    return out
+
+
+def phase_tp_module_sharded_train_path(dev, card: str, work_dir: str) -> dict:
+    """`SaeTrainer` at --tp 2 with `distribute_modules` as two gloo ranks
+    sharing the card (`--rank tp_module_train`) on module_sharded_train_path's
+    4-layer subject cut to each rank's slices, the full-width SAE with AuxK at
+    layers.1 and layers.3: each rank trains one hookpoint on its TP group's
+    hidden states, and its SAE equals the --tp 2 trainer's for that
+    hookpoint bit for bit (each rank runs that trainer after its own);
+    tokens/s and the peak a rank."""
+    t_phase = time.perf_counter()
+    results, card_peak_gb = spawn_ranks("tp_module_train", {"run_dir": os.path.join(work_dir, "tp_ms_run")}, TP_WORLD)
+    if [r["hooks"] for r in results] != [[hook] for hook in MS_HOOKS]:
+        raise AssertionError(f"ranks trained {[r['hooks'] for r in results]}, one of {MS_HOOKS} each expected")
+    want = {"block_max": 2 * TP_MS_BATCHES, "flash_attention": MS_LAYERS * TP_MS_BATCHES}
+    for r in results:
+        if not r["equal_bits"]:
+            raise AssertionError(f"rank {r['rank']}'s SAE differs from the --tp 2 trainer's: {r['max_abs_diff']}")
+        if {k: r["launches"][k] for k in want} != want or r["opt_step"] != TP_MS_BATCHES // 2:
+            raise AssertionError(f"rank {r['rank']} launched {r['launches']} over {r['opt_step']} steps, "
+                                 f"expected {want}")
+    emit({
+        "phase": "tp_module_sharded_train_path", "world": TP_WORLD, "tp": TP_WORLD,
+        "backend": "gloo (two ranks on one card)",
+        "subject": f"LLaMA-3-8B widths cut to {MS_LAYERS} layers, bf16, flash attention, --tp 2 slices",
+        "hookpoints": list(MS_HOOKS), "sae": "4096 -> 131072 latents, k=256, fp32, AuxK 1/32, dead threshold 0",
+        "rows_a_batch": 1, "ctx_len": 2048, "batches": TP_MS_BATCHES, "grad_acc_steps": 2,
+        "equal_bits_to_tp_trainer": True, "ranks": results, "card_peak_gb_nvidia_smi": card_peak_gb,
+        "seconds": time.perf_counter() - t_phase, "card": card,
+    })
+    names = ("block_max", "flash_attention", "flash_attention_bwd_delta", "flash_attention_bwd_dkdv",
+             "flash_attention_bwd_dq", "gather_rows", "splice_decode", "decode_dvals")
+    return {"launches": {name: sum(r["launches"][name] for r in results) for name in names},
+            "per_rank": [r["launches"] for r in results]}
+
+
 def _split_entries(module_dir: str, n_splits: int) -> tuple:
     locs, acts = check_splits(module_dir, n_splits, 131072)
     keys = (locs[:, 0].astype(np.int64) * 2048 + locs[:, 1]) * 131072 + locs[:, 2]
@@ -5974,7 +6281,7 @@ def phase_dp_replicas_path(dev, card: str, work_dir: str, cache: dict) -> dict:
 
 RANK_PHASES = {"dp_cache": rank_dp_cache, "dp_train": rank_dp_train, "nccl": rank_nccl,
                "module_train": rank_module_train, "tp_cache": rank_tp_cache, "tp_subject": rank_tp_subject,
-               "tp_train": rank_tp_train}
+               "tp_train": rank_tp_train, "tp_module_train": rank_tp_module_train}
 
 
 def rank_main(phase: str, args: dict) -> int:
@@ -6044,6 +6351,9 @@ def main() -> int:
     attribution = phase_attribution_path(dev, card)
     model, sae = attribution.pop("model"), attribution.pop("sae")
     general = phase_general_attribution_path(dev, card, model, sae)
+    remat = phase_remat_attribution_path(dev, card, model, sae)
+    gc.collect()
+    torch.cuda.empty_cache()
     stats = phase_stats_path(dev, card, model, sae, loaded["records"], loaded["selected"])
     steering = phase_steering_path(dev, card, model, sae)
     tools = phase_tools_path(dev, card, model, sae)
@@ -6070,6 +6380,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         tp_train = phase_tp_train_path(dev, card, work_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        tp_module_train = phase_tp_module_sharded_train_path(dev, card, work_dir)
     gc.collect()
     torch.cuda.empty_cache()
     image = phase_image_cache_path(dev, card)
@@ -6080,6 +6393,7 @@ def main() -> int:
     llava, llava_sae = image_steering.pop("model"), image_steering.pop("sae")
     image_attribution = phase_image_attribution_path(dev, card, llava, llava_sae)
     image_tools = phase_image_tools_path(dev, card, llava, llava_sae, image_attribution.pop("saliency"))
+    remat_image = phase_remat_image_row(dev, card, llava, llava_sae, image_attribution.pop("remat_probe"))
     del llava, llava_sae
     gc.collect()
     torch.cuda.empty_cache()
@@ -6099,11 +6413,12 @@ def main() -> int:
             module_train["launches"], image["launches"], image_train["launches"], image_steering["launches"],
             image_attribution["launches"], int8_image["launches"], clip["launches"], tp_cache["launches"],
             dp_replicas["launches"], tp_subject["launches"], tp_train["launches"], tools["launches"],
-            image_tools["launches"])
+            image_tools["launches"], remat["launches"], tp_module_train["launches"])
     per_rank = {phase: [{name: counts[name] for name in ("block_max", "flash_attention")} for counts in run["per_rank"]]
                 for phase, run in (("dp_cache_path", dp_cache), ("nccl_path", nccl), ("dp_train_path", dp_train),
                                    ("module_sharded_train_path", module_train), ("tp_cache_path", tp_cache),
-                                   ("tp_subject_path", tp_subject), ("tp_train_path", tp_train))}
+                                   ("tp_subject_path", tp_subject), ("tp_train_path", tp_train),
+                                   ("tp_module_sharded_train_path", tp_module_train))}
     new_phases = {"int8_cache_path": int8_cache, "int8_subject_path": int8_subject,
                   "module_sharded_train_path": module_train, "int8_image_path": int8_image,
                   "tp_cache_path": tp_cache, "dp_replicas_path": dp_replicas, "tp_subject_path": tp_subject,
@@ -6134,7 +6449,10 @@ def main() -> int:
          "tp_rank_shapes": [{key: tp_subject["k3_cache"][key] for key in ("shape", "max_abs_err", "ms", "plain_ms",
                                                                           "bound_ms", "bound_by", "library_ms")},
                             {"shape": tp_subject["k3_chain"]["shape"], **tp_subject["k3_chain"]["forward_with_lse"]}],
-         "launches_per_rank": {phase: [c["flash_attention"] for c in ranks] for phase, ranks in per_rank.items()}},
+         "launches_per_rank": {phase: [c["flash_attention"] for c in ranks] for phase, ranks in per_rank.items()},
+         "launches_a_chunk_without_and_with_remat": {
+             what: [runs[tag]["launches"]["flash_attention"] for tag in ("no_remat", "remat")]
+             for what, runs in (("text", remat["flash"]), ("image_row", remat_image))}},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "multimodal_sae_tpu_torch/csrc/flash_attention_bwd.cu",
          "replaces": "multimodal_sae_tpu/models/llama.py:341 (jax flash_attention.py:1121 dkv, :1456 dq)",
@@ -6182,6 +6500,11 @@ def main() -> int:
         names = parts.get(entry["name"], (entry["name"],))
         entry["launches_in_phases_of_slices_10_and_11"] = {
             phase: sum(run["launches"][name] for name in names) for phase, run in new_phases.items()}
+    for entry in kernels_line["kernels"]:
+        names = parts.get(entry["name"], (entry["name"],))
+        entry["launches_in_phases_of_slice_13"] = {
+            phase: sum(run["launches"][name] for name in names)
+            for phase, run in (("remat_attribution_path", remat), ("tp_module_sharded_train_path", tp_module_train))}
     for entry in kernels_line["kernels"]:
         names = parts.get(entry["name"], (entry["name"],))
         entry["launches_in_tools_path"] = {

@@ -20,7 +20,8 @@ trains its block of the hookpoints on the whole global batch
 the subject over each group of N consecutive ranks: the dataset is sharded
 over the groups, every rank of a group trains the SAEs on the group's
 hidden states, and the gradients are summed over the ranks that share
-`rank % N`.  `--dp N` captures each batch's rows on N copies of the
+`rank % N`; with `--distribute_modules` as well, each rank of a group
+trains its block of the hookpoints.  `--dp N` captures each batch's rows on N copies of the
 subject in one process and gathers them on the trainer's card
 (parallel/)."""
 

@@ -5,10 +5,7 @@ Field-for-field copies of `multimodal_sae_tpu.config.SaeConfig`,
 `TrainConfig`, `RunConfig`, `ExperimentConfig`, `FeatureConfig`,
 `CacheConfig` and `AttributionConfig` (same names, defaults and order), so
 `cfg.json` and `config.json` files and CLI flags are interchangeable
-between the two packages.  Options whose paths a later slice ports
-(tensor parallelism and the in-process data-parallel replicas) and the one
-the port leaves out (rematerialisation) are accepted here and refused by
-the entry points that would need them.
+between the two packages.
 """
 
 from __future__ import annotations
@@ -107,7 +104,8 @@ class TrainConfig:
 
     distribute_modules: bool = False
     """Shard the hookpoints over the ranks: each rank trains its own block
-    of them on the whole global batch (train/module_sharded.py)."""
+    of them on the whole global batch (train/module_sharded.py); under
+    `--tp N`, over the N ranks of each TP group."""
 
     save_every: int = 1000
     """Save SAEs every `save_every` optimizer steps."""
@@ -117,7 +115,9 @@ class TrainConfig:
     wandb_log_frequency: int = 1
 
     mm_data: bool = False
-    """Multimodal training data (not in this slice of the port)."""
+    """Multimodal training data: LLaVA "conversations" and an `image`
+    column (train/data.py `process_mm_data`, train/collator.py
+    `DataCollatorForImage`)."""
 
     def __post_init__(self):
         if self.layers and self.layer_stride != 1:
@@ -161,10 +161,13 @@ class RunConfig(TrainConfig):
     """Run the subject's attention through the causal flash-attention kernel."""
 
     tp: int = 0
-    """Tensor-parallel degree (not in this slice of the port)."""
+    """Tensor-parallel degree: shard the subject over each group of this
+    many consecutive ranks (parallel/tensor_parallel.py)."""
 
     dp: int = 0
-    """In-process data parallelism (not in this slice of the port)."""
+    """In-process data parallelism: copies of the subject on this many
+    local cards, each running its share of the rows
+    (parallel/data_parallel.py)."""
 
     max_examples: Optional[int] = None
     """Maximum number of examples to use for training."""
@@ -317,10 +320,13 @@ class CacheConfig:
     sae/model.py `quantize_encoder`)."""
 
     tp: int = 0
-    """Tensor-parallel degree (not in this slice of the port)."""
+    """Tensor-parallel degree: shard the subject over each group of this
+    many consecutive ranks (parallel/tensor_parallel.py)."""
 
     dp: int = 0
-    """In-process data parallelism (not in this slice of the port)."""
+    """In-process data parallelism: copies of the subject on this many
+    local cards, each running its share of the rows
+    (parallel/data_parallel.py)."""
 
 
 @dataclass
@@ -356,20 +362,23 @@ class AttributionConfig:
     kernels (ops/flash_attention.py) instead of eager attention."""
 
     remat: bool = False
-    """Rematerialise decoder layers in the backward (not ported; refused:
-    the suffix backward keeps its activations, which fit one card)."""
+    """Recompute the subject's decoder layers in the backward
+    (`LlamaConfig.remat`): the suffix's tape keeps only each layer's
+    (B, S, D) input, where eager attention's fp32 scores alone take about
+    6 GB a layer at an 8-feature chunk of a 2,432-token prompt; one more
+    forward of the suffix a chunk."""
 
     load_in_8bit: bool = False
     """Quantise the subject to int8 (models/quant.py); the backward takes
     the quantised products' straight-through gradient."""
 
     tp: int = 0
-    """Tensor-parallel degree (not in this slice of the port; refused above
-    1)."""
+    """Tensor-parallel degree: shard the subject over each group of this
+    many consecutive ranks; the features are split over the groups."""
 
     dp: int = 0
-    """Data parallelism over features (not in this slice of the port;
-    refused above 1)."""
+    """In-process data parallelism over features: each chunk split over
+    copies of the subject on this many local cards."""
 
     feature_batch: int = 0
     """Features attributed per chunk, stacked on the batch axis.  0 = auto:

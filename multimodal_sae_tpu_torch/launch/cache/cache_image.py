@@ -26,13 +26,12 @@ from ...interp_utils import load_filter, load_saes
 from ...parallel import initialize_distributed
 from ...parallel.tensor_parallel import replicate_saes
 from ...utils.cli import parse_dataclass
-from ..utils import load_any_dataset, load_subject_model, refuse_unported, validate_hookpoints
+from ..utils import load_any_dataset, load_subject_model, validate_hookpoints
 from .cache import run_cache
 
 
 def main(cfg: CacheConfig, device: DeviceLike = None):
     device = setup(device)
-    refuse_unported(cfg)
     initialize_distributed(device)
     model, _processor, tokenizer = load_subject_model(
         cfg.model,

@@ -22,7 +22,9 @@ straight-through gradient to the splice.  `--tp N` shards the subject over
 each group of N consecutive ranks (the features are split over the groups,
 and the backward runs through the group's collectives); `--dp N` splits
 each feature chunk over N copies of the subject in one process
-(parallel/).  --remat is refused (ROADMAP.md §1)."""
+(parallel/).  `--remat` recomputes the subject's decoder layers in the
+backward (`LlamaConfig.remat`), so that the suffix's tape keeps only the
+layers' inputs."""
 
 from __future__ import annotations
 
@@ -39,7 +41,7 @@ from ...parallel import all_gather_objects, initialize_distributed, process_inde
 from ...parallel.tensor_parallel import replicate_saes
 from ...utils.cli import parse_dataclass
 from ...utils.safetensors_io import save_file
-from ..utils import load_subject_model, refuse_unported, shard_info, validate_hookpoints, writes_outputs
+from ..utils import load_subject_model, shard_info, validate_hookpoints, writes_outputs
 
 
 def gather_and_merge(local: dict):
@@ -65,7 +67,6 @@ def gather_and_merge(local: dict):
 def main(cfg: AttributionConfig, device: DeviceLike = None):
     """Attribute, gather and (on rank 0) write; returns the written file's
     path on rank 0 and None elsewhere."""
-    refuse_unported(cfg)
     device = setup(device)
     initialize_distributed(device)
 
@@ -76,7 +77,7 @@ def main(cfg: AttributionConfig, device: DeviceLike = None):
     model, _processor, tokenizer = load_subject_model(
         cfg.model, dtype=torch.bfloat16, flash_attention=cfg.flash_attention, device=device,
         load_in_8bit=cfg.load_in_8bit, int8_matmul=cfg.int8_matmul, int8_vision=cfg.int8_vision,
-        tp=cfg.tp, dp=cfg.dp,
+        tp=cfg.tp, dp=cfg.dp, remat=cfg.remat,
     )
     rank, world = shard_info()
     attribution = Attribution(

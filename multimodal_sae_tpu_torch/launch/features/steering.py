@@ -33,7 +33,7 @@ from ...features.steering import SteeringController
 from ...interp_utils import load_filter, load_saes
 from ...parallel import gather_objects, initialize_distributed
 from ...parallel.tensor_parallel import replicate_saes
-from ..utils import load_subject_model, refuse_unported, shard_info, validate_hookpoints, writes_outputs
+from ..utils import load_subject_model, shard_info, validate_hookpoints, writes_outputs
 
 
 def parse_argument(argv=None):
@@ -82,7 +82,6 @@ def parse_argument(argv=None):
 
 def main(argv=None, device: DeviceLike = None):
     args = parse_argument(argv)
-    refuse_unported(args)
     device = setup(device)
     initialize_distributed(device)
     quantized = args.load_in_8bit or args.int8_matmul

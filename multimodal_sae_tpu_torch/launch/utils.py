@@ -17,10 +17,6 @@ import torch
 
 from ..device import DeviceLike
 
-_UNPORTED = {
-    "remat": "§1, steering and generation (remat is left out: the backward keeps its activations)",
-}
-
 
 def _is_llava_checkpoint(model_name_or_path: str) -> bool:
     cfg_file = os.path.join(model_name_or_path, "config.json")
@@ -42,6 +38,7 @@ def load_subject_model(
     int8_vision: bool = False,
     tp: int = 0,
     dp: int = 0,
+    remat: bool = False,
 ) -> Tuple[object, Optional[object], object]:
     """The frozen subject from a local HF checkpoint directory: LLaVA-NeXT
     when the checkpoint is one (config.json's model_type, else the name),
@@ -60,6 +57,10 @@ def load_subject_model(
     leaf as they move from the host to the device, so the dropped layers
     never reach it and the dense and the int8 tree are never both whole on
     it.
+
+    `remat` recomputes the language model's decoder layers in the backward
+    (`LlamaConfig.remat`).  Each runtime flag is OR-ed into the language
+    model's config by `_merge_flags`, on both branches.
 
     `tp > 1` shards the language model over this rank's TP group of a
     torchrun world that `tp` divides (parallel/tensor_parallel.py): the
@@ -96,10 +97,7 @@ def load_subject_model(
             quantize_clip_params(params["vision_tower"], device=quant_dev)
             params["projector"] = {name: t.to(quant_dev) for name, t in params["projector"].items()}
             params["image_newline"] = params["image_newline"].to(quant_dev)
-        text_cfg = dataclasses.replace(
-            cfg.text_config, flash_attention=flash_attention or cfg.text_config.flash_attention,
-            int8_matmul=int8_matmul or cfg.text_config.int8_matmul,
-        )
+        text_cfg = _merge_flags(cfg.text_config, flash_attention, int8_matmul, remat)
         vision_cfg = dataclasses.replace(cfg.vision_config, int8_matmul=int8_vision or cfg.vision_config.int8_matmul)
         model = LlavaNextModel(params, dataclasses.replace(cfg, text_config=text_cfg, vision_config=vision_cfg))
         processor = LlavaNextProcessor.from_pretrained(model_name_or_path, token=hf_token)
@@ -112,8 +110,7 @@ def load_subject_model(
         )
         if quantize:
             quantize_llama_params(params, device=quant_dev)
-        cfg = dataclasses.replace(cfg, flash_attention=flash_attention or cfg.flash_attention,
-                                  int8_matmul=int8_matmul or cfg.int8_matmul)
+        cfg = _merge_flags(cfg, flash_attention, int8_matmul, remat)
         model, processor = LlamaModel(params, cfg), None
     if sharded:
         from ..parallel import shard_subject_model
@@ -126,6 +123,18 @@ def load_subject_model(
     tokenizer = AutoTokenizer.from_pretrained(model_name_or_path, token=hf_token)
     model.generation_config = _load_generation_config(model_name_or_path)
     return model, processor, tokenizer
+
+
+def _merge_flags(text_cfg, flash_attention: bool, int8_matmul: bool, remat: bool):
+    """The language model's config with the runtime flags OR-ed into it
+    (JAX launch/utils.py:107-116: one merge for the LLaVA and the plain
+    LLaMA branch, so that no flag reaches one and misses the other)."""
+    return dataclasses.replace(
+        text_cfg,
+        flash_attention=flash_attention or text_cfg.flash_attention,
+        int8_matmul=int8_matmul or text_cfg.int8_matmul,
+        remat=remat or text_cfg.remat,
+    )
 
 
 def _load_generation_config(model_name_or_path: str) -> dict:
@@ -171,20 +180,11 @@ def prepare_prompt_batch(
     return tok, prompt_ids, batch
 
 
-def refuse_unported(cfg) -> None:
-    """Raise on a CLI option whose path a later slice ports."""
-    for name, item in _UNPORTED.items():
-        value = getattr(cfg, name, False)
-        if value is True or (not isinstance(value, bool) and value > 1):
-            raise NotImplementedError(f"--{name} is not ported yet: ROADMAP.md {item}")
-
-
 def load_subject_or_synthetic(cfg, device: DeviceLike = None):
     """`synthetic://dM,L,V` builds the synthetic subject; anything else is a
-    local checkpoint through `load_subject_model`.  Refuses the options
-    whose paths later slices port, and `--tp` / `--dp` on a synthetic
-    subject, which has no checkpoint weights to shard or copy."""
-    refuse_unported(cfg)
+    local checkpoint through `load_subject_model`.  Refuses `--tp` / `--dp`
+    on a synthetic subject, which has no checkpoint weights to shard or
+    copy."""
     if cfg.model.startswith("synthetic://"):
         parallel = [f"--{name} {getattr(cfg, name)}" for name in ("tp", "dp") if (getattr(cfg, name, 0) or 0) > 1]
         if parallel:

@@ -24,8 +24,14 @@ the JAX package runs eager attention over the whole cache
 a cache): the same function, since the slots past the prompt are masked,
 and one whose fp32 score tensor, (B, H, S, S + new) a layer, would not fit
 at an image prompt.  A decode step attends over the live slots in plain
-PyTorch, as the JAX package does outside any Pallas kernel.  Remat is not
-ported.
+PyTorch, as the JAX package does outside any Pallas kernel.
+
+With `LlamaConfig.remat` a forward under autograd runs each decoder layer
+through non-reentrant `torch.utils.checkpoint`: the backward keeps only
+the layers' inputs and recomputes each layer's tape when it reaches it, as
+the JAX package wraps `decoder_layer` in `jax.checkpoint`.  Interventions
+and capture stay outside the recomputed call, and a cached forward
+(generation) is never wrapped.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device, set_precision
 from ..ops import flash_attention as fa
@@ -70,6 +77,14 @@ class LlamaConfig:
     """Run quantised weights through the W8A8 product (models/quant.py
     `qmatmul(int8=True)`: per-row activation quantisation, int8 x int8 ->
     int32).  Ignored for dense weights; W8A16 otherwise."""
+
+    remat: bool = False
+    """Recompute each decoder layer in the backward (non-reentrant
+    `torch.utils.checkpoint`): the tape keeps only the (B, S, D) layer
+    inputs instead of each layer's activations (eager attention's fp32
+    scores and probabilities are about 9 GB a layer at an 8-feature chunk
+    of a 2,432-token prompt), at the cost of one more forward of the
+    layers that the backward crosses."""
 
     tp: Optional[Any] = field(default=None, compare=False, hash=False, repr=False)
     """The `--tp` layout (parallel/tensor_parallel.py `TensorParallel`) of a
@@ -362,9 +377,13 @@ def llama_forward(
     if end > len(params["layers"]):
         raise ValueError(f"layer {end - 1} is past the subject's {len(params['layers'])} layers")
     captured = {}
+    remat = cfg.remat and cache is None and torch.is_grad_enabled()
     for i in range(start_layer, end):
-        kv = (cache.k[i], cache.v[i]) if cache is not None else None
-        h = decoder_layer(params["layers"][i], cfg, h, cos, sin, mask, pad_mask, kv=kv, cache_offset=offset)
+        if remat:
+            h = checkpoint(decoder_layer, params["layers"][i], cfg, h, cos, sin, mask, pad_mask, use_reentrant=False)
+        else:
+            kv = (cache.k[i], cache.v[i]) if cache is not None else None
+            h = decoder_layer(params["layers"][i], cfg, h, cos, sin, mask, pad_mask, kv=kv, cache_offset=offset)
         if i in iv_by_idx:
             h = iv_by_idx[i](h)
         if i in cap_by_idx:

@@ -377,8 +377,8 @@ class Sae(nn.Module):
         device: DeviceLike = None,
     ) -> Dict[str, "Sae"]:
         """One SAE per hookpoint directory under the local path `name`,
-        natsorted (reference sae.py:68-100).  Hub downloads need a network
-        and wait for a later slice."""
+        natsorted (reference sae.py:68-100).  Hub names are not read: they
+        need a network."""
         root = Path(name)
         if not root.is_dir():
             raise FileNotFoundError(f"{name} is not a local SAE directory")

@@ -12,6 +12,12 @@ world 1 every hookpoint trains in the one process.  `SaeTrainer` runs this
 form when `TrainConfig.distribute_modules` is set; the JAX package's two
 forms (device groups in one process, and `ModuleShardedTrainer` over a
 shard_map all-to-all) are this one dataflow on a TPU mesh.
+
+Under `--tp N` every rank of a TP group already holds the group's whole
+hidden states, so no row has to move: the plan shards the hookpoints over
+the N ranks of a group (by `rank % N`), and the ranks that share `rank % N`,
+one in each group, train the same block data-parallel over their rows,
+with the trainer's summed gradients (train/trainer.py).
 """
 
 from __future__ import annotations
@@ -23,12 +29,16 @@ import torch
 from ..parallel.collectives import all_to_all_rows
 
 
-def module_plan(hookpoints: Sequence[str], widths: Dict[str, int], world: int) -> List[List[str]]:
-    """The hookpoints each rank owns, in rank order: contiguous blocks of
-    len(hookpoints) / world (JAX train/trainer.py:139-142, :317-323)."""
+def module_plan(hookpoints: Sequence[str], widths: Dict[str, int], world: int,
+                group: str = "ranks") -> List[List[str]]:
+    """The hookpoints each of `world` members owns, in member order:
+    contiguous blocks of len(hookpoints) / world (JAX
+    train/trainer.py:139-142, :317-323).  `group` names the members in the
+    divisibility error (the world's ranks, or a TP group's)."""
     per_rank, rem = divmod(len(hookpoints), world)
     if rem or not per_rank:
-        raise ValueError("Number of modules must be divisible by the group count")
+        raise ValueError(f"Number of modules must be divisible by the group count: {len(hookpoints)} hookpoint(s) "
+                         f"over {world} {group}")
     unique_widths = set(widths[h] for h in hookpoints)
     if len(unique_widths) > 1:
         raise ValueError(

@@ -53,7 +53,11 @@ Under `--tp N` (a subject with `tensor_parallel`) the ranks of a TP group
 capture together, and each trains the SAEs on the group's hidden states,
 which are equal on every rank of it: the data-parallel sums above run
 over the ranks that share `rank % N` (one per group), the preemption OR
-over every rank, and only the global rank 0 saves.  A `--dp` subject's
+over every rank, and only the global rank 0 saves.  With
+`distribute_modules` as well, the hookpoints shard over the N ranks of a
+TP group instead of the world (no rows move: each rank holds its group's),
+the ranks that share `rank % N` train their block data-parallel as above,
+and the first TP group's ranks write their SAEs.  A `--dp` subject's
 capture gathers its replicas' rows on the trainer's device.  `fit` runs
 inside `maybe_trace("sae_train")` (utils/profiling.py).
 """
@@ -304,22 +308,28 @@ class SaeTrainer:
         # The ranks that hold other rows of the global batch: under --tp, one
         # rank of each TP group (those that share rank % N); else every rank.
         layout = getattr(model, "tensor_parallel", None)
-        if layout is not None and cfg.distribute_modules:
-            raise ValueError("--distribute_modules with --tp is not supported: the hookpoints shard over ranks "
-                             "that each hold the whole subject")
         self.dp_group = layout.dp_group if layout is not None else None
         dp_size = layout.dp_size if layout is not None else process_count()
-        # One plan entry per rank under distribute_modules (the hookpoints it
-        # owns); None when every rank trains every hookpoint.
-        self.module_plan = (
-            module_plan(cfg.hookpoints, self.input_widths, process_count()) if cfg.distribute_modules else None
-        )
-        self.data_parallel = dp_size > 1 and self.module_plan is None
+        # One plan entry per member under distribute_modules (the hookpoints
+        # it owns): the world's ranks, exchanging rows; or under --tp the TP
+        # group's ranks, which hold the group's rows already, each block
+        # trained data-parallel by the ranks that share rank % N.  None when
+        # every rank trains every hookpoint.
+        self.module_plan, self._plan_index, self._exchange = None, 0, False
+        if cfg.distribute_modules:
+            if layout is not None:
+                members, self._plan_index, group = layout.size, layout.rank, f"ranks of a --tp {layout.size} group"
+            else:
+                members, self._plan_index, group = process_count(), process_index(), "ranks of the world"
+                self._exchange = True
+            self.module_plan = module_plan(cfg.hookpoints, self.input_widths, members, group=group)
+        self.data_parallel = dp_size > 1 and (self.module_plan is None or layout is not None)
         if self.module_plan is None:
             rank0_print(f"Training on modules: {cfg.hookpoints}")
         else:
+            member = "TP rank" if layout is not None else "Rank"
             for r, hooks in enumerate(self.module_plan):
-                rank0_print(f"Rank {r} modules: {hooks}")
+                rank0_print(f"{member} {r} modules: {hooks}")
 
         sae_dtype = getattr(torch, cfg.sae_dtype)
         self.saes: Dict[str, Sae] = {}
@@ -370,7 +380,7 @@ class SaeTrainer:
     def local_hookpoints(self):
         """The hookpoints this rank trains: its block of the module plan, or
         every hookpoint."""
-        return self.module_plan[process_index()] if self.module_plan is not None else self.cfg.hookpoints
+        return self.module_plan[self._plan_index] if self.module_plan is not None else self.cfg.hookpoints
 
     def _refresh_dead_mask(self, name: str) -> torch.Tensor:
         """The device's dead mask from the host counters (at grad-acc
@@ -471,12 +481,13 @@ class SaeTrainer:
         `mark(stage)`, when given, is called after "capture", "exchange"
         (module-sharded), the stages of `accumulate`, and at a boundary
         "apply" and "bookkeeping".  Under `distribute_modules` every
-        hookpoint is captured and exchanged before this rank's SAEs train."""
+        hookpoint is captured, and exchanged (except under `--tp`), before
+        this rank's SAEs train."""
         cfg = self.cfg
         hidden_dict = self.model.capture(batch, cfg.hookpoints)
         if mark is not None:
             mark("capture")
-        if self.module_plan is not None:
+        if self._exchange:
             hidden_dict = scatter_hiddens({name: h.reshape(-1, h.shape[-1]) for name, h in hidden_dict.items()},
                                           self.module_plan, process_index())
             if mark is not None:
@@ -541,28 +552,32 @@ class SaeTrainer:
         `run_name` (default "sae-ckpts"), in the JAX trainer's files, then
         pass a barrier on every rank.  Under data parallelism the ranks hold
         equal state and rank 0 writes it all; under module sharding each
-        rank writes its own SAEs and optimizer states, and rank 0 gathers
-        the counters and writes the shared files (reference
+        plan member writes its own SAEs and optimizer states (under `--tp`,
+        the first TP group's ranks), and rank 0 gathers the members'
+        counters and writes the shared files (reference
         trainer.py:546-552)."""
         path = self.cfg.run_name or "sae-ckpts"
         rank = process_index()
         if rank != 0 and self.module_plan is None:
             barrier("trainer_save")
             return
-        rank0_print("Saving checkpoint")
-        os.makedirs(path, exist_ok=True)
-        for hook, sae in self.saes.items():
-            sae.save_to_disk(f"{path}/{hook}")
-        for name in self.saes:
-            leaves = flatten_state(self.opt_states[name])
-            save_file({f"leaf_{i}": t for i, t in enumerate(leaves)}, f"{path}/optimizer_{_safe(name)}.safetensors")
+        writers = len(self.module_plan) if self.module_plan is not None else 1
+        if rank < writers:  # the plan's members are ranks 0 .. writers - 1 (the first TP group under --tp)
+            rank0_print("Saving checkpoint")
+            os.makedirs(path, exist_ok=True)
+            for hook, sae in self.saes.items():
+                sae.save_to_disk(f"{path}/{hook}")
+            for name in self.saes:
+                leaves = flatten_state(self.opt_states[name])
+                save_file({f"leaf_{i}": t for i, t in enumerate(leaves)},
+                          f"{path}/optimizer_{_safe(name)}.safetensors")
         counters = self.num_tokens_since_fired
         if self.module_plan is not None:
             gathered = gather_objects(counters)
             if rank != 0:
                 barrier("trainer_save")
                 return
-            counters = {name: c for part in gathered for name, c in part.items()}
+            counters = {name: c for part in gathered[:writers] for name, c in part.items()}
         save_file(
             {f"num_tokens_since_fired/{name}": counters[name] for name in self.cfg.hookpoints},
             f"{path}/state.safetensors",

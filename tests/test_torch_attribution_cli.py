@@ -12,9 +12,11 @@ port's K3 runs its plain version on the CPU).  Each writes one
 `{checkpoint}_{hookpoint with . as _}.safetensors`: the same name, keys,
 shapes and dtypes, and values within rtol 1e-4, atol 1e-6 (fp32 on both
 sides, other summation orders; the bound tests/test_launch_integration.py
-holds the JAX fast path to its general one).  The options of later slices
-are refused with a pointer to ROADMAP.md before anything loads."""
+holds the JAX fast path to its general one).  `--tp 2` and `--dp 2` are
+refused by the subject loader in one process without two cards; `--remat`
+writes the same file as without it."""
 
+import dataclasses
 import functools
 import json
 import os
@@ -126,18 +128,36 @@ def test_cli_attributes_a_quantized_subject(setup_dirs, tmp_path, flag, monkeypa
 
 @pytest.mark.parametrize("flag", [{"tp": 2}, {"dp": 2}, {"remat": True}], ids=lambda f: next(iter(f)))
 def test_cli_refuses_options_of_later_slices(setup_dirs, tmp_path, flag, monkeypatch):
+    """The options once refused: the subject loader refuses --tp 2 in one
+    process and --dp 2 without two cards; --remat (ported in slice 13)
+    reaches the subject's text config, and the CLI writes the same file as
+    without it, byte for byte (eager attention, the CLI's default)."""
+    from multimodal_sae_tpu_torch.launch import utils as port_launch_utils
     from multimodal_sae_tpu_torch.launch.features import attribution_patching as port_cli
 
     ckpt, sae_dir, probe = setup_dirs
     cfg = AttributionConfig(model=ckpt, data_path=probe, sae_path=sae_dir, selected_sae=HOOK,
                             save_dir=str(tmp_path / "out"), **flag)
     if "remat" in flag:
-        monkeypatch.setattr(port_cli, "load_subject_model", lambda *a, **kw: pytest.fail("the subject loaded"))
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            port_cli.main(cfg, device="cpu")
-    else:  # ported: the subject loader refuses --tp 2 in one process, --dp 2 without two cards
-        with pytest.raises(ValueError, match="world size it divides" if "tp" in flag else "local devices"):
-            port_cli.main(cfg, device="cpu")
+        loaded = []
+        load = _in_fp32(port_launch_utils.load_subject_model, torch.float32)
+
+        def recording(*args, **kw):
+            out = load(*args, **kw)
+            loaded.append(out[0])
+            return out
+
+        monkeypatch.setattr(port_cli, "load_subject_model", recording)
+        with_remat = port_cli.main(cfg, device="cpu")
+        without = port_cli.main(dataclasses.replace(cfg, remat=False, save_dir=str(tmp_path / "plain")), device="cpu")
+        assert [m.cfg.text_config.remat for m in loaded] == [True, False]
+        assert os.path.basename(with_remat) == os.path.basename(without)
+        with open(with_remat, "rb") as a, open(without, "rb") as b:
+            assert a.read() == b.read()
+        assert np.abs(load_file(with_remat)[HOOK].numpy()).max() > 0
+        return
+    with pytest.raises(ValueError, match="world size it divides" if "tp" in flag else "local devices"):
+        port_cli.main(cfg, device="cpu")
     assert not (tmp_path / "out").exists()
 
 
