@@ -38,6 +38,15 @@ Phases; any failure raises and ends the run with a non-zero exit code:
    `FeatureCache` with streaming splits over 4 batches of 8 x 2,048 tokens,
    then `save_splits` and `concate_safetensors`; checks the launch counts,
    the merged entries, the feature ranges and one batch's top-k;
+   hub_sae_path, right after it: the same SAE, with its decoder, written
+   as a HuggingFace cache's snapshot of HUB_REPO and read by that name,
+   offline, through `load_saes` (with and without a filter) and
+   `load_single_sae`, every tensor equal bit for bit to `load_from_disk`'s;
+   the cache path's first batch encoded and selected with it (K1 twice),
+   its top-k equal to the cache path's; kth_search_path: `kth_value`
+   (the JAX package's search forms are its aliases) at the AuxK
+   threshold's shape in fp32, bf16 and float16, its values equal to
+   `torch.kthvalue`'s, timed beside the bytes bound;
    loader_path, in the cache path's directory, on its merged splits: a
    `FeatureDataset` filtered to 2,000 features drawn with a seed
    from those the cache holds (some under `min_examples`, skipped), loaded
@@ -140,9 +149,9 @@ Phases; any failure raises and ends the run with a non-zero exit code:
    dp_train_path: `SaeTrainer` data-parallel as two gloo ranks sharing the
    card (`--rank dp_train`): the subject cut to DP_TRAIN_LAYERS layers
    (hookpoint DP_TRAIN_HOOK), 131,072 latents, k = 256, AuxK, dead
-   threshold 0, DP_TRAIN_ROWS x 2,048 ids a rank a batch, 4 batches,
-   grad_acc_steps 2, each rank its contiguous shard, rank 0 saving between
-   barriers; against one trainer in this process over the same global
+   threshold 0, DP_TRAIN_ROWS x 2,048 ids a rank a batch,
+   DP_TRAIN_BATCHES batches, grad_acc_steps 2, each rank its contiguous
+   shard, rank 0 saving between barriers; against one trainer in this process over the same global
    batches (rank 0's rows, then rank 1's): the parameters within
    DP_TRAIN_UPDATE_REL, `opt_step` equal, the counters equal once the
    ranks' are doubled; per rank the gradient all-reduce's ms a step (gloo
@@ -1070,7 +1079,189 @@ def phase_cache_path(dev, card: str, work_dir: str) -> dict:
         "peak_gb": peak_gb, "card": card,
     })
     return {"launches": launches, "cache_dir": save_dir, "hook": hook, "sae_dir": os.path.join(work_dir, "saes"),
-            "rows": len(rows), "n_splits": n_splits, "tokens": np.stack([r["input_ids"] for r in rows])}
+            "rows": len(rows), "n_splits": n_splits, "tokens": np.stack([r["input_ids"] for r in rows]),
+            "sae": sae, "hidden0": h, "batch0_topk": (vals, idx)}
+
+
+HUB_REPO = "org/llama3-sae-131k"
+HUB_REVISION = "0123456789abcdef0123456789abcdef01234567"
+
+
+@contextlib.contextmanager
+def _offline_hub(cache_dir: str):
+    """Within the block, `huggingface_hub` reads the cache `cache_dir` with
+    every HTTP session offline; yields the module, or None where it is not
+    installed.  The environment is set before the import, which reads it; a
+    module imported earlier has its constants set and its sessions dropped.
+    On exit the environment and the constants are put back."""
+    env = {name: os.environ.get(name) for name in ("HF_HUB_OFFLINE", "HF_HUB_CACHE")}
+    os.environ.update(HF_HUB_OFFLINE="1", HF_HUB_CACHE=cache_dir)
+    saved = None
+    try:
+        try:
+            import huggingface_hub
+            from huggingface_hub import constants
+        except ImportError:
+            yield None
+            return
+        saved = {name: getattr(constants, name) for name in ("HF_HUB_OFFLINE", "HF_HUB_CACHE")}
+        constants.HF_HUB_OFFLINE, constants.HF_HUB_CACHE = True, cache_dir
+        with contextlib.suppress(ImportError):
+            from huggingface_hub.utils._http import reset_sessions
+
+            reset_sessions()
+        yield huggingface_hub
+    finally:
+        for name, value in env.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
+        if saved is not None:
+            for name, value in saved.items():
+                setattr(constants, name, value)
+
+
+def phase_hub_sae_path(dev, card: str, work_dir: str, cache: dict) -> dict:
+    """The cache path's SAE (seed 0, here with its decoder, which is drawn
+    after the encoder) written as HUB_REPO's snapshot in a HuggingFace cache
+    layout under `work_dir` (`models--org--name/refs/main`,
+    `snapshots/<revision>/<hook>/`) and read by name through `load_saes`
+    (all hookpoints, and a filter) and `load_single_sae`, offline: every
+    tensor equal bit for bit to `Sae.load_from_disk`'s of the snapshot and
+    the encoder to the cache path's SAE; then the cache path's first batch
+    encoded and selected with the hub-loaded SAE on the card (K1 launched
+    twice), its values and indices equal to the cache path's.  Where
+    `huggingface_hub` is not installed, a hub name must raise
+    FileNotFoundError, and the loads read the snapshot as a local path."""
+    from multimodal_sae_tpu_torch.interp_utils import load_saes, load_single_sae
+    from multimodal_sae_tpu_torch.ops import top_k
+    from multimodal_sae_tpu_torch.sae import Sae, pre_acts
+
+    t_phase = time.perf_counter()
+    hook, disk_sae, h = cache["hook"], cache.pop("sae"), cache.pop("hidden0")
+    want_vals, want_idx = cache.pop("batch0_topk")
+    hub_dir = os.path.join(work_dir, "hf_cache")
+    folder = os.path.join(hub_dir, "models--" + HUB_REPO.replace("/", "--"))
+    snapshot = os.path.join(folder, "snapshots", HUB_REVISION)
+    os.makedirs(os.path.join(folder, "refs"))
+    with open(os.path.join(folder, "refs", "main"), "w") as f:
+        f.write(HUB_REVISION)
+    seconds = {}
+    t0 = time.perf_counter()
+    Sae(disk_sae.d_in, disk_sae.cfg, seed=0, device=dev).save_to_disk(os.path.join(snapshot, hook))
+    seconds["write"] = time.perf_counter() - t0
+
+    with _offline_hub(hub_dir) as hub:
+        if hub is None:
+            try:
+                load_saes(HUB_REPO, device=dev)
+            except FileNotFoundError as e:
+                unchecked = f"huggingface_hub is not installed here: {HUB_REPO} raised {type(e).__name__} ({e})"
+            else:
+                raise AssertionError("a hub name loaded without huggingface_hub")
+            print(f"hub_sae_path: the name's resolution went unchecked on this machine; {unchecked}", flush=True)
+            name = snapshot
+        else:
+            name, unchecked = HUB_REPO, None
+        t0 = time.perf_counter()
+        ref = Sae.load_from_disk(os.path.join(snapshot, hook), device=dev)
+        seconds["load_from_disk"] = time.perf_counter() - t0
+        for what, load in (("load_saes", lambda: load_saes(name, device=dev)),
+                           ("load_saes_filter", lambda: load_saes(name, {hook: np.arange(8)}, device=dev)),
+                           ("load_single_sae", lambda: {hook: load_single_sae(name, hook, device=dev)})):
+            t0 = time.perf_counter()
+            saes = load()
+            torch.cuda.synchronize()
+            seconds[what] = time.perf_counter() - t0
+            if list(saes) != [hook]:
+                raise AssertionError(f"{what} loaded {list(saes)}")
+            keys = ["W_enc", "b_enc", "b_dec"] + (["W_dec"] if what == "load_single_sae" else [])
+            if list(saes[hook].params) != keys or not all(_bits_equal(saes[hook].params[key], ref.params[key])
+                                                           for key in keys):
+                raise AssertionError(f"{what} differs from load_from_disk's bits")
+            if what == "load_saes":
+                sae = saes[hook]
+    del ref, saes
+    if not all(_bits_equal(sae.params[key], disk_sae.params[key]) for key in disk_sae.params):
+        raise AssertionError("the snapshot's encoder is not the cache path's SAE")
+    del disk_sae
+    torch.cuda.empty_cache()
+
+    x = h.reshape(-1, h.shape[-1])
+    gc.collect()
+    reset_kernel_counts()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    latents = pre_acts(sae.params, x)
+    ev[1].record()
+    vals, idx = top_k(latents, sae.cfg.k, assume_finite=True)
+    ev[2].record()
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    if launches != {**dict.fromkeys(launches, 0), "block_max": 2}:
+        raise AssertionError(f"hub SAE encode launched {launches}, expected block_max 2")
+    if not (torch.equal(idx, want_idx) and _bits_equal(vals, want_vals)):
+        raise AssertionError("the hub-loaded SAE's top-k differs from the cache path's")
+    del latents, sae
+    emit({
+        "phase": "hub_sae_path", "repo": HUB_REPO, "resolved_by": "huggingface_hub (offline cache)" if hub else
+        "local path (huggingface_hub absent)", "huggingface_hub": getattr(hub, "__version__", None),
+        "unchecked": unchecked, "sae": "4096 -> 131072 latents, k=256, fp32", "hookpoint": hook,
+        "loads_equal_to_load_from_disk": ["load_saes", "load_saes_filter", "load_single_sae"],
+        "tokens": x.shape[0], "topk_equal_to_cache_path": True, "launches": launches,
+        "stage_ms": {"encode": ev[0].elapsed_time(ev[1]), "top_k": ev[1].elapsed_time(ev[2])},
+        "seconds": seconds, "phase_s": time.perf_counter() - t_phase, "card": card,
+    })
+    return {"launches": launches}
+
+
+KTH_ROWS, KTH_WIDTH, KTH_K = 16384, 131072, 2048
+# kth_search_path: the AuxK threshold's call on train_path, `kth_value` of
+# the dead latents' scores (8 x 2,048 rows x 131,072 latents, half of them
+# -inf, k = d_in / 2).
+
+
+def phase_kth_search_path(dev, card: str) -> dict:
+    """`kth_value` at the AuxK threshold's shape (KTH_ROWS x KTH_WIDTH, the
+    odd latents -inf, the rest relu of a seeded normal, k = KTH_K) in fp32,
+    bf16 and float16 (the JAX package's search forms are its aliases): its
+    values equal to `torch.kthvalue`'s on the same rows, each timed with
+    CUDA events beside the bytes bound of one read of the input and one
+    write of the output.  A measurement, not a path: no kernel of the port
+    runs."""
+    from multimodal_sae_tpu_torch.ops import kth_value, kth_value_bitwise, kth_value_histogram
+
+    t_phase = time.perf_counter()
+    if not (kth_value_bitwise is kth_value and kth_value_histogram is kth_value):
+        raise AssertionError("the k-th value's search forms are not kth_value")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    scores = torch.randn(KTH_ROWS, KTH_WIDTH, generator=gen, device=dev).relu_()
+    scores[:, 1::2] = float("-inf")
+    gc.collect()
+    reset_kernel_counts()
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        x = scores if dtype == torch.float32 else scores.to(dtype)
+        got = kth_value(x, KTH_K)
+        want = torch.kthvalue(x, KTH_WIDTH - KTH_K + 1, dim=-1, keepdim=True).values
+        if not (torch.equal(got, want) and bool((got > 0).all())):
+            raise AssertionError(f"{dtype}: kth_value differs from torch.kthvalue, or is not positive")
+        nbytes = x.numel() * x.element_size() + got.numel() * got.element_size()
+        out[str(dtype).replace("torch.", "")] = {
+            "shape": list(x.shape), "k": KTH_K, "equal_to_torch_kthvalue": True,
+            "kth_value_ms": time_ms(lambda: kth_value(x, KTH_K), iters=2, warmup=0),
+            "torch_kthvalue_ms": time_ms(lambda: torch.kthvalue(x, KTH_WIDTH - KTH_K + 1, dim=-1), iters=2,
+                                         warmup=0),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+        del x, got, want
+    del scores
+    launches = kernel_counts()
+    if any(launches.values()):
+        raise AssertionError(f"kth_value launched {launches}")
+    emit({"phase": "kth_search_path", "what": "AuxK threshold's kth_value input (train_path)", "dtypes": out,
+          "seconds": time.perf_counter() - t_phase, "card": card})
+    return {"launches": launches}
 
 
 def k2_decode_bound(N: int, k: int, d: int, distinct: int) -> dict:
@@ -4587,12 +4778,14 @@ DP_PROC_TIMEOUT_S = 600
 # Every collective of a rank's process group, and each rank process, is
 # bounded: a rank that fails or hangs ends the phase with an error.
 DP_TRAIN_LAYERS, DP_TRAIN_HOOK = 4, "layers.3"
-DP_TRAIN_ROWS, DP_TRAIN_BATCHES = 1, 4
+DP_TRAIN_ROWS, DP_TRAIN_BATCHES = 1, 2
 # dp_train_path: the subject cut to 4 layers and 1 x 2,048 ids a rank a
-# batch (4 batches, 2 optimizer steps) so that two full-width trainers with
-# AuxK fit on one card beside each other with room to spare (train_path's
-# one trainer at 8 x 2,048 peaks at 61.3 GB with 25 layers, 74.7 GB with
-# AuxK; at 2 x 2,048 a rank the card held 77.0 GB in all, nvidia-smi).
+# batch so that two full-width trainers with AuxK fit on one card beside
+# each other with room to spare (train_path's one trainer at 8 x 2,048
+# peaks at 61.3 GB with 25 layers, 74.7 GB with AuxK; at 2 x 2,048 a rank
+# the card held 77.0 GB in all, nvidia-smi); 2 batches, one optimizer
+# step, here and in module_sharded_train_path, since each step's 4.3 GB
+# gradient all-reduce through the host takes 5-7 s of the script's time.
 DP_TRAIN_UPDATE_REL = 1e-2
 # The data-parallel run's parameters against the solo run's on the same
 # global batches, per tensor: ||dp - solo|| <= 1e-2 * ||solo - init||.
@@ -4757,10 +4950,14 @@ def phase_dp_cache_path(card: str, work_dir: str, cache: dict) -> dict:
             "per_rank": [r["launches"] for r in results]}
 
 
-def _dp_train_rows(vocab: int) -> list:
+DP_TRAIN_N_ROWS = DP_WORLD * DP_TRAIN_ROWS * DP_TRAIN_BATCHES
+
+
+def _dp_train_rows(vocab: int, n: int) -> list:
+    """The training phases' first `n` rows of 2,048 seeded ids; a phase that
+    takes fewer rows gets a prefix of a longer call's."""
     rng = np.random.default_rng(3)
-    return [{"input_ids": rng.integers(0, vocab, size=2048)}
-            for _ in range(DP_WORLD * DP_TRAIN_ROWS * DP_TRAIN_BATCHES)]
+    return [{"input_ids": rng.integers(0, vocab, size=2048)} for _ in range(n)]
 
 
 def _dp_train_config(batch_size: int, run_name: str):
@@ -4785,7 +4982,7 @@ def rank_dp_train(args: dict) -> dict:
     rank, world = shard_info()
     cfg = LlamaConfig(num_hidden_layers=DP_TRAIN_LAYERS, flash_attention=True)
     model = LlamaModel.random(cfg, seed=0, dtype=torch.bfloat16, device=dev)
-    shard, _ = shard_dataset_contiguous(_dp_train_rows(cfg.vocab_size), world, rank)
+    shard, _ = shard_dataset_contiguous(_dp_train_rows(cfg.vocab_size, DP_TRAIN_N_ROWS), world, rank)
     t0 = time.perf_counter()
     trainer = SaeTrainer(_dp_train_config(DP_TRAIN_ROWS, args["run_dir"]), shard, model, device=dev)
     torch.cuda.synchronize()
@@ -4816,6 +5013,21 @@ def rank_dp_train(args: dict) -> dict:
             "unfired_in_last_window": int((trainer.num_tokens_since_fired[hook] > 0).sum())}
 
 
+def _update_rel(got: dict, want: dict, init: dict, dev) -> tuple:
+    """Per tensor, ||got - want|| / ||want - init|| and max |got - want|:
+    the fp32 differences taken on the card, their norms summed in float64
+    there (`want` and `init` on the host while the ranks hold the card)."""
+    rel, max_abs = {}, {}
+    for name, w in want.items():
+        w = w.to(dev)
+        step = torch.linalg.vector_norm((w - init[name].to(dev)).double()).item()
+        diff = got[name].to(dev) - w
+        rel[name] = torch.linalg.vector_norm(diff.double()).item() / max(step, 1e-30)
+        max_abs[name] = diff.abs().max().item()
+        del w, diff
+    return rel, max_abs
+
+
 def phase_dp_train_path(dev, card: str, work_dir: str) -> dict:
     """Data-parallel `SaeTrainer` as two ranks sharing the card (gloo), at
     the SAE's full width with AuxK, against one trainer in this process on
@@ -4833,7 +5045,7 @@ def phase_dp_train_path(dev, card: str, work_dir: str) -> dict:
     hook, B, n = DP_TRAIN_HOOK, DP_TRAIN_ROWS, DP_TRAIN_BATCHES
     cfg = LlamaConfig(num_hidden_layers=DP_TRAIN_LAYERS, flash_attention=True)
     model = LlamaModel.random(cfg, seed=0, dtype=torch.bfloat16, device=dev)
-    rows = _dp_train_rows(cfg.vocab_size)
+    rows = _dp_train_rows(cfg.vocab_size, DP_TRAIN_N_ROWS)
     order = [r * B * n + s * B + i for s in range(n) for r in range(DP_WORLD) for i in range(B)]
     solo_rows = [rows[j] for j in order]
     trainer = SaeTrainer(_dp_train_config(DP_WORLD * B, os.path.join(work_dir, "solo_run")), solo_rows, model,
@@ -4854,14 +5066,12 @@ def phase_dp_train_path(dev, card: str, work_dir: str) -> dict:
 
     run_dir = os.path.join(work_dir, "dp_run")
     results, card_peak_gb = spawn_ranks("dp_train", {"run_dir": run_dir}, DP_WORLD)
-    dp = Sae.load_from_disk(os.path.join(run_dir, hook), device="cpu").params
+    dp = Sae.load_from_disk(os.path.join(run_dir, hook), device=dev).params
     with open(os.path.join(run_dir, "state.json")) as f:
         state = json.load(f)
     counts = load_file(os.path.join(run_dir, "state.safetensors"))[f"num_tokens_since_fired/{hook}"].numpy()
-    rel = {}
-    for name in solo:
-        step = torch.linalg.vector_norm((solo[name] - init[name]).double()).item()
-        rel[name] = torch.linalg.vector_norm((dp[name] - solo[name]).double()).item() / max(step, 1e-30)
+    rel, max_abs = _update_rel(dp, solo, init, dev)
+    del dp
     if not all(v <= DP_TRAIN_UPDATE_REL for v in rel.values()):
         raise AssertionError(f"data-parallel parameters off the solo run's: {rel}")
     if state["opt_step"] != solo_opt_step or state["global_step"] != n:
@@ -4873,7 +5083,6 @@ def phase_dp_train_path(dev, card: str, work_dir: str) -> dict:
     for r in results:
         if {k: r["launches"][k] for k in expected} != expected:
             raise AssertionError(f"rank {r['rank']} launched {r['launches']}, expected {expected}")
-    max_abs = {name: (dp[name] - solo[name]).abs().max().item() for name in solo}
     emit({
         "phase": "dp_train_path", "world": DP_WORLD, "backend": "gloo (two ranks on one card; CUDA tensors "
         "staged through the host)", "subject": f"LLaMA-3-8B widths cut to {DP_TRAIN_LAYERS} layers, bf16, flash "
@@ -5376,7 +5585,7 @@ def rank_module_train(args: dict) -> dict:
     rank, world = shard_info()
     cfg = LlamaConfig(num_hidden_layers=MS_LAYERS, flash_attention=True)
     model = LlamaModel.random(cfg, seed=0, dtype=torch.bfloat16, device=dev)
-    shard, _ = shard_dataset_contiguous(_dp_train_rows(cfg.vocab_size), world, rank)
+    shard, _ = shard_dataset_contiguous(_dp_train_rows(cfg.vocab_size, DP_TRAIN_N_ROWS), world, rank)
     trainer = SaeTrainer(_ms_train_config(DP_TRAIN_ROWS, args["run_dir"]), shard, model, device=dev)
     torch.cuda.reset_peak_memory_stats()
     gc.collect()
@@ -5419,7 +5628,7 @@ def phase_module_sharded_train_path(dev, card: str, work_dir: str) -> dict:
     B, n = DP_TRAIN_ROWS, DP_TRAIN_BATCHES
     cfg = LlamaConfig(num_hidden_layers=MS_LAYERS, flash_attention=True)
     model = LlamaModel.random(cfg, seed=0, dtype=torch.bfloat16, device=dev)
-    rows = _dp_train_rows(cfg.vocab_size)
+    rows = _dp_train_rows(cfg.vocab_size, DP_TRAIN_N_ROWS)
     order = [r * B * n + s * B + i for s in range(n) for r in range(DP_WORLD) for i in range(B)]
     solo_rows = [rows[j] for j in order]
     trainer = SaeTrainer(_ms_train_config(DP_WORLD * B, os.path.join(work_dir, "ms_solo")), solo_rows, model,
@@ -5450,12 +5659,8 @@ def phase_module_sharded_train_path(dev, card: str, work_dir: str) -> dict:
     state_counts = load_file(os.path.join(run_dir, "state.safetensors"))
     rel, max_abs, counters = {}, {}, {}
     for hook in MS_HOOKS:
-        got = Sae.load_from_disk(os.path.join(run_dir, hook), device="cpu").params
-        rel[hook], max_abs[hook] = {}, {}
-        for name, want in solo[hook].items():
-            step = torch.linalg.vector_norm((want - init[hook][name]).double()).item()
-            rel[hook][name] = torch.linalg.vector_norm((got[name] - want).double()).item() / max(step, 1e-30)
-            max_abs[hook][name] = (got[name] - want).abs().max().item()
+        got = Sae.load_from_disk(os.path.join(run_dir, hook), device=dev).params
+        rel[hook], max_abs[hook] = _update_rel(got, solo[hook], init[hook], dev)
         counts = state_counts[f"num_tokens_since_fired/{hook}"].numpy()
         counters[hook] = int((counts * DP_WORLD != solo_counts[hook]).sum())
     if not all(v <= MS_UPDATE_REL for per_hook in rel.values() for v in per_hook.values()):
@@ -5914,7 +6119,7 @@ def rank_tp_train(args: dict) -> dict:
     os.environ["MMSAE_PROFILE_DIR"] = args["profile_dir"]
     dev = torch.device("cuda")
     model = _tp_subject(DP_TRAIN_LAYERS, dev)
-    rows = _dp_train_rows(model.cfg.vocab_size)[:TP_TRAIN_BATCHES]
+    rows = _dp_train_rows(model.cfg.vocab_size, TP_TRAIN_BATCHES)
     captured, step = [], {}
     _recording_capture(model, DP_TRAIN_HOOK, captured)
     trainer = SaeTrainer(_dp_train_config(1, args["run_dir"]), rows, model, device=dev)
@@ -5978,7 +6183,7 @@ def phase_tp_train_path(dev, card: str, work_dir: str) -> dict:
             raise AssertionError(f"rank {r['rank']} ended at opt_step {r['opt_step']}, step {r['global_step']}")
 
     cfg = LlamaConfig(num_hidden_layers=DP_TRAIN_LAYERS, flash_attention=True)
-    rows = _dp_train_rows(cfg.vocab_size)[:TP_TRAIN_BATCHES]
+    rows = _dp_train_rows(cfg.vocab_size, TP_TRAIN_BATCHES)
 
     def first_step(subject, fingerprints=None) -> dict:
         """The first step's gradient and update of one trainer on
@@ -6091,7 +6296,7 @@ def rank_tp_module_train(args: dict) -> dict:
 
     dev = torch.device("cuda")
     model = _tp_subject(MS_LAYERS, dev)
-    rows = _dp_train_rows(model.cfg.vocab_size)[:TP_MS_BATCHES]
+    rows = _dp_train_rows(model.cfg.vocab_size, TP_MS_BATCHES)
     trainer = SaeTrainer(_ms_train_config(1, args["run_dir"]), rows, model, device=dev)
     hooks = list(trainer.saes)
     torch.cuda.synchronize()
@@ -6249,7 +6454,7 @@ def phase_dp_replicas_path(dev, card: str, work_dir: str, cache: dict) -> dict:
     cfg = LlamaConfig(num_hidden_layers=DP_TRAIN_LAYERS, flash_attention=True)
     base = LlamaModel.random(cfg, seed=0, dtype=torch.bfloat16, device=dev)
     replicated = shard_subject_model_dp(copy.copy(base), DP_REPLICAS, devices=[dev] * DP_REPLICAS)[0]
-    train_rows = _dp_train_rows(cfg.vocab_size)[:2]
+    train_rows = _dp_train_rows(cfg.vocab_size, 2)
     trained_on = []
     _recording_capture(replicated, DP_TRAIN_HOOK, trained_on)
     trainer = SaeTrainer(_dp_train_config(2, os.path.join(work_dir, "dp_replicas_run")), train_rows, replicated,
@@ -6326,6 +6531,10 @@ def main() -> int:
     # The loader reads the splits the cache phase merged, in its directory.
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work_dir:
         cache = phase_cache_path(dev, card, work_dir)
+        hub = phase_hub_sae_path(dev, card, work_dir, cache)
+        gc.collect()
+        torch.cuda.empty_cache()
+        kth = phase_kth_search_path(dev, card)
         gc.collect()
         torch.cuda.empty_cache()
         dp_cache = phase_dp_cache_path(card, work_dir, cache)
@@ -6413,7 +6622,8 @@ def main() -> int:
             module_train["launches"], image["launches"], image_train["launches"], image_steering["launches"],
             image_attribution["launches"], int8_image["launches"], clip["launches"], tp_cache["launches"],
             dp_replicas["launches"], tp_subject["launches"], tp_train["launches"], tools["launches"],
-            image_tools["launches"], remat["launches"], tp_module_train["launches"])
+            image_tools["launches"], remat["launches"], tp_module_train["launches"], hub["launches"],
+            kth["launches"])
     per_rank = {phase: [{name: counts[name] for name in ("block_max", "flash_attention")} for counts in run["per_rank"]]
                 for phase, run in (("dp_cache_path", dp_cache), ("nccl_path", nccl), ("dp_train_path", dp_train),
                                    ("module_sharded_train_path", module_train), ("tp_cache_path", tp_cache),
@@ -6505,6 +6715,11 @@ def main() -> int:
         entry["launches_in_phases_of_slice_13"] = {
             phase: sum(run["launches"][name] for name in names)
             for phase, run in (("remat_attribution_path", remat), ("tp_module_sharded_train_path", tp_module_train))}
+    for entry in kernels_line["kernels"]:
+        names = parts.get(entry["name"], (entry["name"],))
+        entry["launches_in_phases_of_slice_14"] = {
+            phase: sum(run["launches"][name] for name in names)
+            for phase, run in (("hub_sae_path", hub), ("kth_search_path", kth))}
     for entry in kernels_line["kernels"]:
         names = parts.get(entry["name"], (entry["name"],))
         entry["launches_in_tools_path"] = {

@@ -27,7 +27,6 @@ from __future__ import annotations
 import collections
 import json
 import logging
-import os
 from functools import partial
 from typing import Callable, Dict, List, Optional
 
@@ -254,9 +253,9 @@ def general_attribution_maps(
 
 class Attribution:
     """Args mirror the reference: a subject model, a tokenizer, a local SAE
-    directory, and a probing json of {"prompt", "answer", "baseline",
-    "image"} rows.  The SAE loads with its decoder on `device` (the card
-    unless the caller names another)."""
+    directory or HuggingFace repository, and a probing json of {"prompt",
+    "answer", "baseline", "image"} rows.  The SAE loads with its decoder on
+    `device` (the card unless the caller names another)."""
 
     def __init__(
         self,
@@ -276,10 +275,8 @@ class Attribution:
         self.feature_batch = feature_batch
         dev = resolve_device(device)
         set_precision()
-        if not os.path.isdir(sae_path):
-            raise FileNotFoundError(f"{sae_path} is not a local SAE directory (hub downloads need a network)")
         if selected_sae is not None:
-            self.sae_dict = {selected_sae: Sae.load_from_disk(os.path.join(sae_path, selected_sae), device=dev)}
+            self.sae_dict = {selected_sae: Sae.load_from_hub(sae_path, selected_sae, device=dev)}
         else:
             self.sae_dict = Sae.load_many(sae_path, device=dev)
 

@@ -60,18 +60,17 @@ def load_saes(
     decoder: bool = False,
     int8_encoder: bool = False,
 ) -> Dict[str, Sae]:
-    """One SAE per hookpoint from the local directory `sae_path`: the
-    filter's hookpoints when a filter is given, else every subdirectory.
-    The cache path never decodes, so decoders stay on disk unless
-    `decoder` (steering decodes).  `int8_encoder` quantises each W_enc for
-    the W8A8 encode (`Sae.quantize_encoder`; it moves top-k ties)."""
-    if not os.path.isdir(sae_path):
-        raise FileNotFoundError(f"{sae_path} is not a local SAE directory")
+    """One SAE per hookpoint from the local directory or HuggingFace
+    repository `sae_path` (reference utils.py:106-127): the filter's
+    hookpoints when a filter is given, else every hookpoint directory.  A
+    name that is no local path resolves through `huggingface_hub`
+    (`Sae.load_from_hub`, `Sae.load_many`; its cache serves it offline
+    under `HF_HUB_OFFLINE=1`).  The cache path never decodes, so
+    decoders stay on disk unless `decoder` (steering decodes).
+    `int8_encoder` quantises each W_enc for the W8A8 encode
+    (`Sae.quantize_encoder`; it moves top-k ties)."""
     if filters is not None:
-        saes = {
-            name: Sae.load_from_disk(os.path.join(sae_path, name), dtype, decoder=decoder, device=device)
-            for name in filters
-        }
+        saes = {name: Sae.load_from_hub(sae_path, name, dtype, decoder=decoder, device=device) for name in filters}
     else:
         saes = Sae.load_many(sae_path, dtype=dtype, decoder=decoder, device=device)
     if int8_encoder:
@@ -83,15 +82,9 @@ def load_saes(
 def load_single_sae(
     sae_path: str, module_name: str, dtype: Optional[torch.dtype] = None, device: DeviceLike = None
 ) -> Sae:
-    """The SAE of one hookpoint from the local directory `sae_path`
-    (reference utils.py:130-135), with its decoder.  Hub names need a
-    network, which the port's machines do not have: they raise."""
-    if not os.path.exists(sae_path):
-        raise FileNotFoundError(
-            f"{sae_path} is not a local SAE directory; the port loads SAEs from local "
-            "directories only (hub downloads need a network)"
-        )
-    return Sae.load_from_disk(os.path.join(sae_path, module_name), dtype, device=device)
+    """The SAE of one hookpoint, with its decoder, from the local directory
+    or HuggingFace repository `sae_path` (reference utils.py:130-135)."""
+    return Sae.load_from_hub(sae_path, module_name, dtype, device=device)
 
 
 def get_llava_image_pos(input_ids: List[int], image_tok: int) -> Tuple[int, int]:

@@ -1,13 +1,15 @@
 """Text activation caching CLI:
 
     python -m multimodal_sae_tpu_torch.launch.cache.cache <model> <dataset> \\
-        --sae_path <dir> [--flash_attention] [--truncate_layers N] ...
+        --sae_path <dir or org/name> [--flash_attention] [--truncate_layers N] ...
     torchrun --nproc_per_node N -m multimodal_sae_tpu_torch.launch.cache.cache ...
 
 The same flags as `python -m multimodal_sae_tpu.launch.cache.cache`
 (reference launch/cache/cache.py:19-103).  The subject (`synthetic://dM,L,V`
 or a local plain-LLaMA checkpoint directory) and the SAEs run on the CUDA
-card; under torchrun each rank drives one card, caches a contiguous shard
+card.  An `--sae_path` that is not a local path names a HuggingFace
+repository (`interp_utils.load_saes`), which `HF_HUB_OFFLINE=1` reads from
+the HuggingFace cache with no network; under torchrun each rank drives one card, caches a contiguous shard
 of the dataset into its own `Rank{r}_*` splits, and rank 0 merges them
 after a barrier.  `--load_in_8bit` and `--int8_matmul` quantise the
 subject (models/quant.py), `--sae_int8` the SAE encoders (W8A8).

@@ -1,7 +1,7 @@
 """Image activation caching CLI:
 
     python -m multimodal_sae_tpu_torch.launch.cache.cache_image <llava checkpoint> \\
-        <image dataset> --sae_path <dir> [--flash_attention] [--truncate_layers N] ...
+        <image dataset> --sae_path <dir or org/name> [--flash_attention] [--truncate_layers N] ...
 
 The same flags as `python -m multimodal_sae_tpu.launch.cache.cache_image`
 (reference launch/cache/cache_image.py:24-104).  Each image goes through

@@ -1,7 +1,7 @@
 """Attribution-patching CLI:
 
     python -m multimodal_sae_tpu_torch.launch.features.attribution_patching <model> \\
-        --data_path <probe.json> --sae_path <dir> --selected_sae model.layers.24 \\
+        --data_path <probe.json> --sae_path <dir or org/name> --selected_sae model.layers.24 \\
         [--flash_attention] [--feature_batch N] [--save_dir DIR]
 
 The flags of `python -m multimodal_sae_tpu.launch.features.attribution_patching`

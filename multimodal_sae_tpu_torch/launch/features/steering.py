@@ -1,7 +1,7 @@
 """Steering CLI:
 
     python -m multimodal_sae_tpu_torch.launch.features.steering --model <checkpoint> \\
-        --text <prompt> --sae-path <dir> --filters <filters.json> [--image-path <image>] ...
+        --text <prompt> --sae-path <dir or org/name> --filters <filters.json> [--image-path <image>] ...
 
 The same flags and defaults as `python -m
 multimodal_sae_tpu.launch.features.steering` (reference
@@ -42,7 +42,7 @@ def parse_argument(argv=None):
                         help="The model name of your trained model")
     parser.add_argument("--image-path", "-i", type=str, default=None)
     parser.add_argument("--text", "-t", type=str, required=True, help="The prompt text")
-    parser.add_argument("--sae-path", type=str, required=True, help="SAE path (a local directory)")
+    parser.add_argument("--sae-path", type=str, required=True, help="SAE path, hub or local")
     parser.add_argument("--filters", type=str, required=True,
                         help="The filters json path (which features to steer)")
     parser.add_argument("--clamp-value", "-k", type=float, default=50)

@@ -6,7 +6,15 @@ version and its launch count."""
 
 from .geometric_median import geometric_median
 from .sparse_decode import eager_decode, gather_decode, sparse_decode, topk_mask_decode
-from .topk import blockmax_top_k, blockwise_top_k, kth_value, sort_pairs_by_index, top_k
+from .topk import (
+    blockmax_top_k,
+    blockwise_top_k,
+    kth_value,
+    kth_value_bitwise,
+    kth_value_histogram,
+    sort_pairs_by_index,
+    top_k,
+)
 
 __all__ = [
     "blockmax_top_k",
@@ -15,6 +23,8 @@ __all__ = [
     "gather_decode",
     "geometric_median",
     "kth_value",
+    "kth_value_bitwise",
+    "kth_value_histogram",
     "sort_pairs_by_index",
     "sparse_decode",
     "top_k",

@@ -8,8 +8,10 @@ payload bits survive by construction.  The block-max filter keeps the JAX
 package's block choice and runs its reduce through kernel K1
 (ops/block_max.py) at both levels.  Indices come back as int32, as in JAX.
 Like `torch.topk(sorted=False)`, ties at the k-th value may pick either
-element: results are exact as sets.  `kth_value` is the exact k-th largest
-value, bit for bit the JAX package's.
+element: results are exact as sets.  `kth_value` (also exported as the JAX
+package's `kth_value_bitwise` and `kth_value_histogram`) is the exact k-th
+largest value, bit for bit the JAX package's, on float16, bf16, float32 and
+float64.
 """
 
 from __future__ import annotations
@@ -102,24 +104,33 @@ KTH_CHUNK_ELEMENTS = 1 << 27
 """`kth_value` keys at most this many elements at a time (512 MiB of int32
 keys), so a (16,384, 131,072) input needs no second full-size buffer."""
 
+_INT_OF = {torch.float16: torch.int16, torch.bfloat16: torch.int16, torch.float32: torch.int32,
+           torch.float64: torch.int64}
+
+
+def _int_of(dtype: torch.dtype) -> torch.dtype:
+    """The signed integer dtype of a float dtype's width."""
+    if dtype not in _INT_OF:
+        raise TypeError(f"kth_value requires a float dtype, got {dtype}")
+    return _INT_OF[dtype]
+
 
 def _monotone_key(x: torch.Tensor) -> torch.Tensor:
-    """float32 or bf16 -> int32 with key(a) < key(b) iff a < b, -0.0 below
-    +0.0 (NaNs unspecified): the order of the JAX package's `_monotone_key`,
-    on signed integers (negative floats have their magnitude bits flipped)."""
-    if x.dtype == torch.float32:
-        s, mag = x.view(torch.int32), 0x7FFFFFFF
-    elif x.dtype == torch.bfloat16:
-        s, mag = x.view(torch.int16).to(torch.int32), 0x7FFF
-    else:
-        raise TypeError(f"kth_value takes float32 or bfloat16, got {x.dtype}")
-    return torch.where(s < 0, s ^ mag, s)
+    """float16, bf16, float32 or float64 -> a signed integer (16-bit floats
+    widened to int32) with key(a) < key(b) iff a < b, -0.0 below +0.0 (NaNs
+    unspecified): the order of the JAX package's `_monotone_key`, whose
+    unsigned key is this one with its sign bit flipped (negative floats have
+    their magnitude bits flipped)."""
+    idt = _int_of(x.dtype)
+    s = x.view(idt)
+    if idt == torch.int16:
+        s = s.to(torch.int32)
+    return torch.where(s < 0, s ^ torch.iinfo(idt).max, s)
 
 
 def _key_to_value(key: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    if dtype == torch.float32:
-        return torch.where(key < 0, key ^ 0x7FFFFFFF, key).view(torch.float32)
-    return torch.where(key < 0, key ^ 0x7FFF, key).to(torch.int16).view(torch.bfloat16)
+    idt = _int_of(dtype)
+    return torch.where(key < 0, key ^ torch.iinfo(idt).max, key).to(idt).view(dtype)
 
 
 def kth_value(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -143,6 +154,14 @@ def kth_value(x: torch.Tensor, k: int) -> torch.Tensor:
         kth = torch.topk(key, k, dim=-1, sorted=False).values.amin(-1, keepdim=True)
         out[r0:r0 + rows] = _key_to_value(kth, x.dtype)
     return out.reshape(*lead, 1)
+
+
+# The JAX package's two search forms (multimodal_sae_tpu/ops/topk.py
+# `kth_value_bitwise`, one masked count per key bit, and
+# `kth_value_histogram`, nibble rounds) are TPU routes to the same exact
+# value; any exact method gives their bits, so both names are `kth_value`.
+kth_value_bitwise = kth_value
+kth_value_histogram = kth_value
 
 
 def sort_pairs_by_index(idx: torch.Tensor, vals: torch.Tensor) -> Pair:

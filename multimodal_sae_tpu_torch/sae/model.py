@@ -271,9 +271,10 @@ def remove_gradient_parallel_to_decoder_directions(params: Params, grads: Params
 class Sae(nn.Module):
     """(params, cfg, d_in) with the reference's object API: `pre_acts`,
     `select_topk`, `encode`, `decode`, `forward`, `save_to_disk`,
-    `load_from_disk`, `load_many`.  The parameters are buffers, which the
-    cache and attribution paths never differentiate; the trainer turns on
-    their `requires_grad` and keeps their gradients in `.grad`."""
+    `load_from_disk`, `load_from_hub`, `load_many`.  The parameters are
+    buffers, which the cache and attribution paths never differentiate; the
+    trainer turns on their `requires_grad` and keeps their gradients in
+    `.grad`."""
 
     def __init__(
         self,
@@ -369,20 +370,53 @@ class Sae(nn.Module):
         return Sae(d_in, cfg, params=params, decoder=decoder)
 
     @staticmethod
-    def load_many(
+    def load_from_hub(
         name: str,
+        hookpoint: Optional[str] = None,
         dtype: Optional[torch.dtype] = None,
         *,
         decoder: bool = True,
         device: DeviceLike = None,
+    ) -> "Sae":
+        """The SAE of `hookpoint` in the local path or HuggingFace
+        repository `name` (`serde.resolve_hub_path`: a path that exists
+        is read as it is; reference sae.py:102-124)."""
+        from .serde import resolve_hub_path
+
+        return Sae.load_from_disk(resolve_hub_path(name, hookpoint), dtype, decoder=decoder, device=device)
+
+    @staticmethod
+    def load_many(
+        name: str,
+        local: bool = False,
+        layers: Optional[list] = None,
+        dtype: Optional[torch.dtype] = None,
+        *,
+        decoder: bool = True,
+        pattern: Optional[str] = None,
+        device: DeviceLike = None,
     ) -> Dict[str, "Sae"]:
-        """One SAE per hookpoint directory under the local path `name`,
-        natsorted (reference sae.py:68-100).  Hub names are not read: they
-        need a network."""
-        root = Path(name)
-        if not root.is_dir():
-            raise FileNotFoundError(f"{name} is not a local SAE directory")
-        dirs = [f for f in root.iterdir() if f.is_dir()]
+        """One SAE per hookpoint directory of the local path or
+        HuggingFace repository `name` (`local` skips the resolution),
+        natsorted (reference sae.py:68-100): the directories `layers`
+        names, else those whose names match `pattern` (fnmatch), else all.
+        From the hub only `pattern + "/*"` is fetched, since each
+        hookpoint's files sit one directory down."""
+        from fnmatch import fnmatch
+
+        from .serde import resolve_hub_path
+
+        if local:
+            repo_path = Path(name)
+        else:
+            allow = pattern + "/*" if pattern is not None else None
+            repo_path = resolve_hub_path(name, None, allow_patterns=allow, require_cfg=False)
+        if layers is not None:
+            return {
+                layer: Sae.load_from_disk(repo_path / layer, dtype, decoder=decoder, device=device)
+                for layer in natsorted(layers)
+            }
+        dirs = [f for f in repo_path.iterdir() if f.is_dir() and (pattern is None or fnmatch(f.name, pattern))]
         return {
             f.name: Sae.load_from_disk(f, dtype, decoder=decoder, device=device)
             for f in natsorted(dirs, key=lambda f: f.name)

@@ -1,7 +1,7 @@
 """Single-feature steering:
 
     python -m multimodal_sae_tpu_torch.tools.model_steering --model <checkpoint> \\
-        --sae-path <dir> -f <feature> -t "<prompt>" [-i <image>] [-k 10] [--pure-text]
+        --sae-path <dir or org/name> -f <feature> -t "<prompt>" [-i <image>] [-k 10] [--pure-text]
 
 The flags, defaults and printed sections of the JAX package's
 `tools/model_steering.py`: two greedy generations of 512 tokens, the
@@ -35,7 +35,7 @@ def parse_argument(argv=None):
                         help="The model name of your trained model")
     parser.add_argument("--image-path", "-i", type=str, default=None)
     parser.add_argument("--text", "-t", type=str, help="The prompt text")
-    parser.add_argument("--sae-path", type=str, help="SAE path (a local directory)")
+    parser.add_argument("--sae-path", type=str, help="SAE path, hub or local")
     parser.add_argument("--module-name", type=str, default="model.layers.24")
     parser.add_argument("--clamp-value", "-k", type=float, default=10)
     parser.add_argument("--feature_idx", "-f", type=int, help="Feature to clamp")

@@ -1,7 +1,7 @@
 """Probe which features activate on one input:
 
     python -m multimodal_sae_tpu_torch.tools.probe_activations --model <checkpoint> \\
-        --sae-path <dir> [-t "<text>"] [-i <image>] [-k 10] [--interval 1-10] [-s <dir>]
+        --sae-path <dir or org/name> [-t "<text>"] [-i <image>] [-k 10] [--interval 1-10] [-s <dir>]
 
 The flags, defaults and outputs of the JAX package's
 `tools/probe_activations.py`: the SAE's pre-activations at the hookpoint,

@@ -1,7 +1,7 @@
 """HTML heatmap of the filtered features' activations over a text:
 
     python -m multimodal_sae_tpu_torch.tools.text_activation_vis --model-path <checkpoint> \\
-        --sae-path <dir> --explanation-dir <dir> --text "<text>" --save-path <html> [--filters <json>]
+        --sae-path <dir or org/name> --explanation-dir <dir> --text "<text>" --save-path <html> [--filters <json>]
 
 The flags and output of the JAX package's `tools/text_activation_vis.py`:
 the subject runs over the text, each hookpoint's SAE encodes it (top-k:

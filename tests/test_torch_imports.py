@@ -310,8 +310,6 @@ def test_chip_smoke_fails_without_a_card(tmp_path, alone):
 # Names of the JAX package's `__all__` lists the port leaves out, each with
 # its reason (ROADMAP.md §1).  Every other exported name has a counterpart.
 LEFT_OUT = {
-    # Left out on purpose: TPU search forms; the port's kth_value is exact.
-    "ops": {"kth_value_bitwise", "kth_value_histogram"},
     # The mesh and its shardings: one process drives one card (several
     # under --dp, as replicas, not a mesh).
     "parallel": {"data_sharding", "get_mesh", "module_sharding", "replicated_sharding", "replicate_on_mesh"},

@@ -1,5 +1,6 @@
 """The port's interpretation utilities (interp_utils.py) against the JAX
-package's: explanation merging, single-SAE loading from a local directory,
+package's: explanation merging, single-SAE loading from a local directory
+(and the same failure for a hub name missing from the HuggingFace cache),
 the llava image-token span and the notebook display's HTML."""
 
 import json
@@ -30,14 +31,25 @@ def test_load_explanation_matches_jax(tmp_path):
     assert got == {"layers.0_feature1": "cats", "layers.0_feature4": "dogs", "layers.1_feature2": "cars"}
 
 
-def test_load_single_sae_is_local_only(tmp_path):
+def test_load_single_sae_is_local_only(tmp_path, monkeypatch):
+    """A local directory loads as it is; a name that is no local path goes
+    to the HuggingFace cache (offline here), and one missing there raises
+    what the JAX function raises (tests/test_torch_hub.py loads hub names)."""
+    from torch_hub_cache import go_offline
+
     sae = Sae(8, SaeConfig(num_latents=32, k=4), device="cpu", seed=3)
     sae.save_to_disk(tmp_path / "layers.2")
     got = utils.load_single_sae(str(tmp_path), "layers.2", device="cpu")
     for name, t in sae.params.items():
         assert torch.equal(got.params[name], t)
-    with pytest.raises(FileNotFoundError, match="local directories only"):
-        utils.load_single_sae("org/some-sae-on-the-hub", "layers.2", device="cpu")
+    go_offline(monkeypatch, tmp_path / "hf_cache")
+    raised = []
+    for load in (lambda: utils.load_single_sae("org/some-sae-on-the-hub", "layers.2", device="cpu"),
+                 lambda: jax_utils.load_single_sae("org/some-sae-on-the-hub", "layers.2")):
+        with pytest.raises(FileNotFoundError) as e:
+            load()
+        raised.append(type(e.value))
+    assert raised[0] is raised[1]
 
 
 def test_get_llava_image_pos_matches_jax():
