@@ -9,6 +9,13 @@ run loop overlaps the two: it dispatches batch N on the current stream
 extracts batch N-1 on the host while N runs.  `FeatureImageCache` runs the
 same loop on LLaVA-NeXT captures with each row's BOS position dropped.
 
+While a profiler records (utils/profiling.py), the loop's spans are
+`cache.encode` (device: each hookpoint's encode, top-k and sort),
+`cache.wait` (the host waiting for a batch's results: near 0 when the host
+paces the job), `cache.extract` (the host COO), `cache.arena_grow` with the
+counter `cache.arena_grow_bytes` (an arena's reallocation) and
+`cache.stream_submit` (stream_writer.py: blocked on the writer's queue).
+
 On-disk format, byte-equal to the JAX package's:
 `{save_dir}/{module}/Rank{r}_{start}_{end}.safetensors` shards merged into
 `{start}_{end}.safetensors` (tensors `locations (N, 3) int64`,
@@ -28,6 +35,7 @@ import torch
 
 from ..config import SaeConfig
 from ..device import set_precision
+from ..utils.profiling import count, span
 from ..utils.safetensors_io import load_file, save_file
 from ..native import coo_extract_topk, coo_partition_splits, populated_empty
 from ..ops import sort_pairs_by_index, top_k
@@ -81,11 +89,13 @@ class _Arena:
         if need <= cap:
             return
         new_cap = max(need, cap * 2, 1 << 20)
-        loc = populated_empty((new_cap, 3), np.int64)
-        act = populated_empty((new_cap,), act_dtype if self.act is None else self.act.dtype)
-        if self.n:
-            np.copyto(loc[: self.n], self.loc[: self.n])
-            np.copyto(act[: self.n], self.act[: self.n])
+        with span("cache.arena_grow"):
+            loc = populated_empty((new_cap, 3), np.int64)
+            act = populated_empty((new_cap,), act_dtype if self.act is None else self.act.dtype)
+            if self.n:
+                np.copyto(loc[: self.n], self.loc[: self.n])
+                np.copyto(act[: self.n], self.act[: self.n])
+        count("cache.arena_grow_bytes", loc.nbytes + act.nbytes)
         self.loc, self.act = loc, act
 
     def append(self, locations: np.ndarray, activations: np.ndarray):
@@ -140,29 +150,30 @@ class Cache:
         (and in the module's filter), as the reference's dense scatter +
         nonzero would find them.  `row_offset` (default
         `batch_number * batch_size`) is the batch's first dataset row."""
-        vals = np.asarray(vals)
-        idx = np.asarray(idx)
-        if row_offset is None:
-            row_offset = batch_number * self.batch_size
-        row_offset += self.shard_size
-        selected = self.filters[module_path] if self.filters is not None else None
-        arena = self._arenas[module_path]
-        if vals.dtype == np.float32:
-            arena.reserve(vals.size)
-            arena.n += coo_extract_topk(
-                vals, idx, threshold=threshold, filter_ids=selected,
-                row_offset=row_offset, out=(arena.loc[arena.n :], arena.act[arena.n :]),
-            )
-        else:
-            mask = np.abs(vals) > threshold
-            if selected is not None:
-                mask &= np.isin(idx, selected)
-            b, s, j = np.nonzero(mask)
-            locations = np.empty((b.shape[0], 3), dtype=np.int64)
-            locations[:, 0] = b + row_offset
-            locations[:, 1] = s
-            locations[:, 2] = idx[b, s, j]
-            arena.append(locations, vals[mask])
+        with span("cache.extract", batch=batch_number):
+            vals = np.asarray(vals)
+            idx = np.asarray(idx)
+            if row_offset is None:
+                row_offset = batch_number * self.batch_size
+            row_offset += self.shard_size
+            selected = self.filters[module_path] if self.filters is not None else None
+            arena = self._arenas[module_path]
+            if vals.dtype == np.float32:
+                arena.reserve(vals.size)
+                arena.n += coo_extract_topk(
+                    vals, idx, threshold=threshold, filter_ids=selected,
+                    row_offset=row_offset, out=(arena.loc[arena.n :], arena.act[arena.n :]),
+                )
+            else:
+                mask = np.abs(vals) > threshold
+                if selected is not None:
+                    mask &= np.isin(idx, selected)
+                b, s, j = np.nonzero(mask)
+                locations = np.empty((b.shape[0], 3), dtype=np.int64)
+                locations[:, 0] = b + row_offset
+                locations[:, 1] = s
+                locations[:, 2] = idx[b, s, j]
+                arena.append(locations, vals[mask])
 
     def add(self, latents, batch_number: int, module_path: str):
         """Add a dense (B, S, F) batch of masked latents, the reference's
@@ -260,11 +271,12 @@ class FeatureCache:
         """Keep only the hookpoints the filter names (reference cache.py:151-156)."""
         self.submodule_dict = {k: v for k, v in self.submodule_dict.items() if k in filters}
 
-    def _device_step(self, batch: dict, skip_bos: bool = False) -> dict:
+    def _device_step(self, batch: dict, skip_bos: bool = False, batch_number: Optional[int] = None) -> dict:
         """Dispatch one batch's device work (capture + per-hookpoint top-k)
         and the copies of its results to pinned host memory, without waiting
         for them: {module: (vals, idx, event or None)}.  `skip_bos` drops
-        each row's first position before the encoder (the image cache)."""
+        each row's first position before the encoder (the image cache);
+        `batch_number` is the spans' argument."""
         hiddens = self.capture_fn(batch)
         out = {}
         for module_path, h in hiddens.items():
@@ -275,7 +287,8 @@ class FeatureCache:
                 # reshape then takes it as it is.
                 h = h[:, 1:, :].contiguous()
             sae = self.submodule_dict[module_path]
-            vals, idx = map_rows(sae, lambda s, rows: topk_latents_step(s.params, rows, s.cfg), h)
+            with span("cache.encode", device=True, batch=batch_number):
+                vals, idx = map_rows(sae, lambda s, rows: topk_latents_step(s.params, rows, s.cfg), h)
             vals = vals.to(_TORCH_DTYPE[self.activation_dtype])
             if vals.is_cuda:
                 vals_h = torch.empty(vals.shape, dtype=vals.dtype, pin_memory=True)
@@ -293,8 +306,9 @@ class FeatureCache:
         """Wait for one batch's results and extract its COO triples; the row
         cursor sets each row's global dataset index."""
         for module_path, (vals, idx, event) in dev_out.items():
-            if event is not None:
-                event.synchronize()
+            with span("cache.wait", batch=batch_number):
+                if event is not None:
+                    event.synchronize()
             self.cache.add_topk(
                 vals.numpy(), idx.numpy(), batch_number, module_path,
                 row_offset=self._row_cursor,
@@ -315,7 +329,7 @@ class FeatureCache:
         """One cache step without the run loop's overlap: capture, encode
         each hookpoint, accumulate its entries."""
         set_precision()
-        self._host_step(self._device_step(batch, skip_bos), batch_number, _batch_rows(batch))
+        self._host_step(self._device_step(batch, skip_bos, batch_number), batch_number, _batch_rows(batch))
 
     def _preallocate_arenas(self, n_tokens: int, tokens=None):
         """Size each arena from the run-wide estimate: `n_tokens` per row
@@ -360,7 +374,7 @@ class FeatureCache:
         pending = None
         try:
             for batch_number, batch in enumerate(iterator):
-                dev = self._device_step(batch, skip_bos)
+                dev = self._device_step(batch, skip_bos, batch_number)
                 if pending is not None:
                     self._host_step(*pending)
                 pending = (dev, batch_number, _batch_rows(batch))

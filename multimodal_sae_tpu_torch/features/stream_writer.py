@@ -29,6 +29,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..utils.profiling import span
+
 _HDR = 256  # reserved bytes for `u64 len | JSON + space padding`
 _DTYPE_TAGS = {
     "float32": "F32",
@@ -168,9 +170,12 @@ class StreamingSplitWriter:
 
     def submit(self, module_path: str, locs: np.ndarray, acts: np.ndarray):
         """Enqueue a COO chunk (row-major within the chunk) for partitioning
-        and appending.  Chunks must arrive in stream order per module."""
+        and appending.  Chunks must arrive in stream order per module.  The
+        span `cache.stream_submit` is the time blocked on the full queue
+        (the disk slower than caching)."""
         if len(acts):
-            self._put((module_path, locs, acts))
+            with span("cache.stream_submit"):
+                self._put((module_path, locs, acts))
 
     def abort(self):
         """Close every open shard and remove the partial files (zeroed

@@ -28,13 +28,14 @@ from typing import Callable, Dict
 
 from ...config import CacheConfig
 from ...device import DeviceLike, setup
-from ...features import FeatureCache
+from ...features import FeatureCache, FeatureImageCache
 from ...features.cache import _batched
 from ...interp_utils import load_filter, load_saes
 from ...logger import logger
 from ...parallel import barrier, initialize_distributed, shard_dataset_contiguous
 from ...train.data import chunk_and_tokenize
 from ...utils.cli import parse_dataclass
+from ...utils.profiling import maybe_trace
 from ...parallel.tensor_parallel import replicate_saes
 from ..utils import load_any_dataset, load_subject_or_synthetic, shard_info, validate_hookpoints, writes_outputs
 
@@ -59,7 +60,16 @@ def run_cache(
     The shard is `shard_info()`'s, the data-parallel index under `--tp`;
     there the other ranks of a TP group only capture, the same batches in
     the same order, since every capture is a collective of the group.  A
-    step takes `batch_size * dp` rows (`--dp`, JAX cache.py:60-64)."""
+    step takes `batch_size * dp` rows (`--dp`, JAX cache.py:60-64).
+
+    It runs inside `maybe_trace("cache")` (`"cache_image"` for the image
+    cache): with `MMSAE_PROFILE_DIR` set, the profile and the `cache.*`
+    span totals land in `$MMSAE_PROFILE_DIR/<name>/rank{r}.*.json`."""
+    with maybe_trace("cache_image" if issubclass(cache_cls, FeatureImageCache) else "cache"):
+        return _run_cache(cfg, capture_fn, submodule_dict, dataset, filters, cache_cls)
+
+
+def _run_cache(cfg, capture_fn, submodule_dict, dataset, filters, cache_cls) -> Dict[str, float]:
     rank, world = shard_info()
     dataset, shard_start = shard_dataset_contiguous(dataset, world, rank)
     dp = max(1, getattr(cfg, "dp", 0))

@@ -32,6 +32,11 @@ the layers' inputs and recomputes each layer's tape when it reaches it, as
 the JAX package wraps `decoder_layer` in `jax.checkpoint`.  Interventions
 and capture stay outside the recomputed call, and a cached forward
 (generation) is never wrapped.
+
+While a profiler records (utils/profiling.py), `LlamaModel.capture` is the
+device span `subject.decoder` and counts `subject.positions` (the B x S
+the decoder runs) and `subject.valid_positions` (the ones of the mask it is
+passed; B x S without one) (`count_positions`).
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ from ..device import DeviceLike, resolve_device, set_precision
 from ..ops import flash_attention as fa
 from ..parallel.data_parallel import map_rows, replicas_of
 from ..parallel.tensor_parallel import copy_to_tp, gather_from_tp, reduce_from_tp
+from ..utils.profiling import count, recording, span
 from .quant import leaf_device, leaf_dtype, qembed, qmatmul, tied_head_logits
 
 
@@ -483,6 +489,19 @@ def batch_mask(batch: dict, device: torch.device) -> Optional[torch.Tensor]:
     return None if amask.all() else torch.as_tensor(amask, device=device)
 
 
+def count_positions(shape, amask: Optional[torch.Tensor], batch: dict) -> None:
+    """While a profiler records: the counters `subject.positions`, the
+    B x S that the decoder runs (`shape`), and `subject.valid_positions`,
+    the ones of the mask passed to it (`amask`), or B x S where it is passed
+    none.  `batch_mask` makes `amask` from the batch's host mask, so its
+    ones are counted there: never a read from the card."""
+    if not recording():
+        return
+    n = int(shape[0]) * int(shape[1])
+    count("subject.positions", n)
+    count("subject.valid_positions", n if amask is None else int(np.count_nonzero(batch["attention_mask"])))
+
+
 def init_llama_params(
     cfg: LlamaConfig,
     generator: torch.Generator,
@@ -567,9 +586,11 @@ class LlamaModel:
         """The hookpoints' hidden states; a `--dp` subject's replicas each
         run their share of the rows (`data_parallel.map_rows`)."""
         ids, amask = self._ids_and_mask(batch)
-        return map_rows(self, lambda m, ids, amask: llama_forward(
-            m.params, self.cfg, ids, attention_mask=amask, capture=tuple(hookpoints), return_logits=False,
-        )["captured"], ids, amask)
+        count_positions(ids.shape, amask, batch)
+        with span("subject.decoder", device=True):
+            return map_rows(self, lambda m, ids, amask: llama_forward(
+                m.params, self.cfg, ids, attention_mask=amask, capture=tuple(hookpoints), return_logits=False,
+            )["captured"], ids, amask)
 
     def prepare_inputs(self, images=None, input_ids=None, prompt_ids=None) -> dict:
         """Text-only batch from token-id rows, right-padded with an attention

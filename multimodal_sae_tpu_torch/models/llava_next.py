@@ -17,6 +17,12 @@ embeddings;
 `forward_from_layer` resumes the language model above a hookpoint (the
 suffix of fast attribution: the tower, projector and packing all run below
 any language hookpoint, so the suffix is text layers only).
+
+While a profiler records (utils/profiling.py): `llava.stage_pixels` (host:
+the pixel arrays stacked per geometry and copied to the card),
+`llava.vision` (device: tower, projector and pack of every geometry
+group), `subject.decoder` (device: the decoder call of `forward`) and the
+counters of `llama.count_positions`.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from .llama import (
     InterventionFn,
     LlamaConfig,
     batch_mask,
+    count_positions,
     forward_from_layer_above,
     greedy_generate,
     hookpoint_layer_idx,
@@ -53,6 +60,7 @@ from .llama import (
     suffix_params_above,
 )
 from ..parallel.data_parallel import map_rows, replicas_of
+from ..utils.profiling import span
 from .quant import leaf_device, qembed
 
 DEFAULT_PINPOINTS = [[336, 672], [672, 336], [672, 672], [1008, 336], [336, 1008]]
@@ -408,17 +416,22 @@ class LlavaNextModel:
             distinct[memo_key] = get_number_of_features(int(size[0]), int(size[1]), self.cfg)
             groups.setdefault((n_patches, tuple(size)), []).append((memo_key, pv, n_patches))
 
+        # Staging, then the tower over every group: one span of each a batch.
+        with span("llava.stage_pixels"):
+            staged = [torch.stack([torch.as_tensor(pv)[:n_patches] for _, pv, _ in members])
+                      for (n_patches, _), members in groups.items()]
+            staged = [pv.to(self.device) for pv in staged]
         offsets = {}  # memo key -> first row in flat_feats
         parts = []
         offset = 0
-        for (n_patches, size), members in groups.items():
-            stacked = torch.stack([torch.as_tensor(pv)[:n_patches] for _, pv, _ in members]).to(self.device)
-            n_tokens = distinct[members[0][0]]
-            out = self._project_pack_group(stacked, size, n_tokens)
-            for i, (memo_key, _, _) in enumerate(members):
-                offsets[memo_key] = offset + i * n_tokens
-            parts.append(out.reshape(-1, out.shape[-1]))
-            offset += out.shape[0] * n_tokens
+        with span("llava.vision", device=True):
+            for ((_, size), members), stacked in zip(groups.items(), staged):
+                n_tokens = distinct[members[0][0]]
+                out = self._project_pack_group(stacked, size, n_tokens)
+                for i, (memo_key, _, _) in enumerate(members):
+                    offsets[memo_key] = offset + i * n_tokens
+                parts.append(out.reshape(-1, out.shape[-1]))
+                offset += out.shape[0] * n_tokens
         flat_feats = parts[0] if len(parts) == 1 else torch.cat(parts)
 
         rows, cols, fidx = [], [], []
@@ -462,7 +475,9 @@ class LlavaNextModel:
             )
 
         amask = batch_mask(batch, self.device)
-        out = run(self, embeds, amask) if iv else map_rows(self, run, embeds, amask)
+        count_positions(embeds.shape, amask, batch)
+        with span("subject.decoder", device=True):
+            out = run(self, embeds, amask) if iv else map_rows(self, run, embeds, amask)
         out["captured"] = {orig_by_stripped[k]: v for k, v in out["captured"].items()}
         return out
 
