@@ -32,6 +32,13 @@ Phases; any failure raises and ends the run with a non-zero exit code:
    blocks per SM) beside its bound and SDPA's GQA backward, and the
    forward with lse (5 repeats, its TFLOP/s) beside its bound and SDPA's
    GQA forward;
+4b. sae_encode: the SAE encoder's split fp32 product (`ops/sae_encode.py`)
+   at the released SAE shape and the main path's row counts (a text cache
+   batch, an image cache batch, the steering clamp's chunk, one prompt):
+   timed beside both bounds, its split pass, its plain version and the
+   sgemm path (`torch.matmul`, add_, relu_); its error and the sgemm's against float64 on
+   8,192 latents (the kernel's no worse than twice the sgemm's); the top-k
+   of a seeded 2,048-row slice equal to the sgemm path's but at near-ties;
 5. cache_path: a random LLaMA-3-8B-width subject (25 layers for hookpoint
    layers.24, bf16, flash attention) feeding a 131,072-latent k=256 fp32 SAE
    (saved with `save_to_disk`, read back through `load_saes`) through
@@ -324,6 +331,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -470,7 +478,7 @@ def emit(obj: dict) -> None:
 
 
 def _counted_modules():
-    from multimodal_sae_tpu_torch.ops import block_max, flash_attention, gather_rows
+    from multimodal_sae_tpu_torch.ops import block_max, flash_attention, gather_rows, sae_encode
 
     return {
         "block_max": (block_max, "launches"),
@@ -481,6 +489,7 @@ def _counted_modules():
         "gather_rows": (gather_rows, "launches"),
         "splice_decode": (gather_rows, "splice_launches"),
         "decode_dvals": (gather_rows, "dvals_launches"),
+        "sae_encode": (sae_encode, "launches"),
     }
 
 
@@ -910,6 +919,155 @@ def phase_flash_attention_bwd(dev) -> dict:
     return result
 
 
+SAE_ENCODE_ROWS = (65536, 9412, 4096, 2432)
+"""Rows of the split product's calls on the main path: a text cache batch
+(32 x 2,048), an image cache batch (4 x 2,353, pads included), the steering
+clamp's chunk and one attribution prompt."""
+SAE_ENCODE_SLICE = 8192  # latents held against float64 at every row count
+SAE_ENCODE_TOPK_ROWS = 2048  # rows whose top-k the kernel and the sgemm path must share
+SAE_ENCODE_PLAIN_MAX_ROWS = 9412  # the plain version's two (rows, L) fp32 sums fit beside the rest
+
+
+def _abs_errors(got: torch.Tensor, exact: torch.Tensor) -> dict:
+    err = (got.double() - exact).abs()
+    return {"max": err.max().item(), "mean": err.mean().item()}
+
+
+def _topk_near_ties(got: torch.Tensor, lib: torch.Tensor, a: torch.Tensor, W: torch.Tensor, b_enc: torch.Tensor,
+                    k: int, tol: float) -> dict:
+    """The kernel's and the sgemm path's top-k of the same rows as sets;
+    every latent in one set and not the other lies within `tol` of the
+    row's float64 k-th value (a near-tie that rounding decides)."""
+    from multimodal_sae_tpu_torch.ops import top_k
+
+    ig = torch.sort(top_k(got, k, assume_finite=True)[1], dim=1).values
+    il = torch.sort(top_k(lib, k, assume_finite=True)[1], dim=1).values
+    differ = (ig != il).any(dim=1).nonzero().flatten()
+    gap, swaps = 0.0, 0
+    if differ.numel():
+        exact = (a[differ].double() @ W.double() + b_enc.double()).relu_()
+        kth = exact.topk(k, dim=1).values[:, -1:]
+        for row, r in enumerate(differ.tolist()):
+            left, right = set(ig[r].tolist()), set(il[r].tolist())
+            swapped = torch.tensor(sorted(left ^ right), device=got.device)
+            swaps += len(swapped)
+            gap = max(gap, (exact[row, swapped] - kth[row]).abs().max().item())
+    return {"rows": got.shape[0], "rows_differ": differ.numel(), "swapped_latents": swaps,
+            "max_gap_to_kth": gap, "near_tie_tol": tol}
+
+
+def phase_sae_encode(dev, d_in: int = 4096, L: int = 131072, row_counts=SAE_ENCODE_ROWS) -> dict:
+    """The SAE encoder's split fp32 product (`ops/sae_encode.py`) at the
+    released SAE shape (4,096 -> 131,072 latents, W_enc ~ U(+-1/64), bf16
+    hiddens at a residual stream's scale with a few large channels) at
+    every row count of SAE_ENCODE_ROWS: the kernel (split pass and product)
+    timed beside both bounds, the split pass alone, the plain version (on
+    every row up to SAE_ENCODE_PLAIN_MAX_ROWS, above it on the top-k slice
+    of the same call's rows, `plain_rows`) and the library path (fp32
+    sgemm, then add_ and relu_: `library_ms`); the max and mean absolute
+    error of the kernel, the plain version and the sgemm path against
+    float64 on SAE_ENCODE_SLICE latents (the kernel's and the plain
+    version's no worse than twice the sgemm's), and the kernel's largest
+    difference from the plain version on the same rows; the top-k of a
+    seeded SAE_ENCODE_TOPK_ROWS-row slice equal to the sgemm path's but at
+    near-ties; `launches` one higher a call.  `d_in`, `L` and `row_counts`
+    shrink it for a rehearsal."""
+    from multimodal_sae_tpu_torch.device import set_precision
+    from multimodal_sae_tpu_torch.ops import sae_encode as se
+
+    set_precision()
+    gen = torch.Generator(device=dev).manual_seed(24)
+    k, S = 256, min(SAE_ENCODE_SLICE, L)
+    W = torch.empty(d_in, L, device=dev).uniform_(-1 / 64, 1 / 64, generator=gen)
+    b_enc = torch.randn(L, generator=gen, device=dev) * 0.05
+    b_dec = torch.randn(d_in, generator=gen, device=dev) * 0.2
+
+    def library(x):
+        return ((x.float() - b_dec) @ W).add_(b_enc).relu_()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    se.weight_planes(W)
+    torch.cuda.synchronize()
+    weight_split_s = time.perf_counter() - t0
+    cases, failures = [], []
+    with torch.no_grad():
+        for rows in row_counts:
+            x = torch.randn(rows, d_in, generator=gen, device=dev) * 3.0
+            x[:, :8] *= 40.0
+            x = x.to(torch.bfloat16)
+            a = x.float() - b_dec
+            exact = (a.double() @ W[:, :S].double() + b_enc[:S].double()).relu_()
+            iters = 5 if rows > 16384 else 10
+            case = {"rows": rows, "inputs_gb": torch.cuda.memory_allocated() / 1e9}
+            n0 = se.launches
+            got = se.encode(x, W, b_enc, b_dec)
+            torch.cuda.synchronize()
+            if se.launches != n0 + 1:
+                raise AssertionError(f"sae_encode launches {se.launches - n0} in one call")
+            case["allocated_gb"] = torch.cuda.memory_allocated() / 1e9
+            if not math.isfinite(got.amax().item()):
+                raise AssertionError(f"sae_encode gave non-finite output at {rows} rows")
+            case["kernel_err"] = _abs_errors(got[:, :S], exact)
+            r0 = int(torch.randint(0, rows - SAE_ENCODE_TOPK_ROWS + 1, (1,), generator=gen, device=dev)) \
+                if rows > SAE_ENCODE_TOPK_ROWS else 0
+            got_rows = got[r0:r0 + SAE_ENCODE_TOPK_ROWS].clone()
+            del got
+            # The plain version on the same call's rows: all of them up to
+            # SAE_ENCODE_PLAIN_MAX_ROWS, above it the top-k slice.
+            p0 = 0 if rows <= SAE_ENCODE_PLAIN_MAX_ROWS else r0
+            p1 = rows if rows <= SAE_ENCODE_PLAIN_MAX_ROWS else r0 + SAE_ENCODE_TOPK_ROWS
+            plain = se.encode_plain(x[p0:p1], W, b_enc, b_dec)
+            case["plain_rows"] = p1 - p0
+            case["plain_err"] = _abs_errors(plain[:, :S], exact[p0:p1])
+            case["max_abs_diff_plain"] = (got_rows - plain[r0 - p0:r0 - p0 + SAE_ENCODE_TOPK_ROWS]).abs().max().item()
+            del plain
+            case["plain_ms"] = time_ms(lambda: se.encode_plain(x[p0:p1], W, b_enc, b_dec), 2, 1)
+            lib = library(x)
+            case["library_err"] = _abs_errors(lib[:, :S], exact)
+            lib_rows = lib[r0:r0 + SAE_ENCODE_TOPK_ROWS].clone()
+            del lib
+            case["max_abs_diff_library"] = (got_rows - lib_rows).abs().max().item()
+            tol = 4 * max(case["kernel_err"]["max"], case["library_err"]["max"])
+            case["topk"] = _topk_near_ties(got_rows, lib_rows, a[r0:r0 + SAE_ENCODE_TOPK_ROWS], W, b_enc, k, tol)
+            del got_rows, lib_rows
+            del a, exact
+            case["ms"] = time_ms(lambda: se.encode(x, W, b_enc, b_dec), iters, 1)
+            case["split_ms"] = time_ms(lambda: se.split(x, b_dec), iters, 1)
+            case["library_ms"] = time_ms(lambda: library(x), iters, 1)
+            ops_ms = 6 * 2 * rows * d_in * L / BF16_FLOPS * 1e3
+            bytes_ms = (3 * 2 * (rows * d_in + d_in * L) + 4 * rows * L) / HBM_BYTES_PER_S * 1e3
+            case.update(bound_ms=max(ops_ms, bytes_ms), bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                        ops_bound_ms=ops_ms, bytes_bound_ms=bytes_ms,
+                        split_bound_ms=(2 + 6) * rows * d_in / HBM_BYTES_PER_S * 1e3,
+                        tflops=6 * 2 * rows * d_in * L / (case["ms"] - case["split_ms"]) / 1e9)
+            checked = {"kernel": case["kernel_err"]}
+            if "plain_err" in case:
+                checked["plain"] = case["plain_err"]
+            for name, errs in checked.items():
+                if errs["max"] > 2 * case["library_err"]["max"] or errs["mean"] > 2 * case["library_err"]["mean"]:
+                    failures.append(f"{name} error {errs} over twice the sgemm's {case['library_err']} at {rows} rows")
+            if case["topk"]["max_gap_to_kth"] > tol:
+                failures.append(f"top-k differs from the sgemm path's beyond near-ties at {rows} rows: {case['topk']}")
+            emit({"phase": "sae_encode", **case})
+            cases.append(case)
+            del x
+            gc.collect()
+            torch.cuda.empty_cache()
+    del W, b_enc, b_dec
+    gc.collect()
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("; ".join(failures))
+    main = cases[0]
+    return {"name": "sae_encode", "route": "cuda", "source": "multimodal_sae_tpu_torch/csrc/sae_encode.cu",
+            "replaces": "none: XLA's product at Precision.HIGHEST (multimodal_sae_tpu/sae/model.py::pre_acts)",
+            "max_abs_err_vs_float64": main["kernel_err"]["max"], "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "plain_rows": main["plain_rows"], "max_abs_diff_plain": main["max_abs_diff_plain"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "weight_split_s": weight_split_s, "cases": cases}
+
+
 def _check_topk_as_sets(latents: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor, k: int):
     """The port's top-k against `torch.topk` on the same latents: equal value
     multisets, and equal index sets up to ties at the k-th value."""
@@ -1038,7 +1196,8 @@ def phase_cache_path(dev, card: str, work_dir: str) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     expected = {"block_max": 2 * n_batches, "flash_attention": 25 * n_batches,
                 "flash_attention_bwd_delta": 0, "flash_attention_bwd_dkdv": 0,
-                "flash_attention_bwd_dq": 0, "gather_rows": 0, "splice_decode": 0, "decode_dvals": 0}
+                "flash_attention_bwd_dq": 0, "gather_rows": 0, "splice_decode": 0, "decode_dvals": 0,
+                "sae_encode": n_batches}
     if launches != expected:
         raise AssertionError(f"kernel launches {launches} over {n_batches} batches, expected {expected}")
     t0 = time.perf_counter()
@@ -1199,8 +1358,8 @@ def phase_hub_sae_path(dev, card: str, work_dir: str, cache: dict) -> dict:
     ev[2].record()
     torch.cuda.synchronize()
     launches = kernel_counts()
-    if launches != {**dict.fromkeys(launches, 0), "block_max": 2}:
-        raise AssertionError(f"hub SAE encode launched {launches}, expected block_max 2")
+    if launches != {**dict.fromkeys(launches, 0), "block_max": 2, "sae_encode": 1}:
+        raise AssertionError(f"hub SAE encode launched {launches}, expected block_max 2 and sae_encode 1")
     if not (torch.equal(idx, want_idx) and _bits_equal(vals, want_vals)):
         raise AssertionError("the hub-loaded SAE's top-k differs from the cache path's")
     del latents, sae
@@ -1725,13 +1884,13 @@ def phase_attribution_path(dev, card: str) -> dict:
     del step
     torch.cuda.empty_cache()
     chunks = len(feats) // fb
-    # Prefix: 25 forward attentions, the two block-max levels of the
-    # top-(k+1) pool, the clean decode; per chunk: one splice and the
-    # suffix's 7 attentions forward and backward.
+    # Prefix: 25 forward attentions, the encode and the two block-max
+    # levels of the top-(k+1) pool, the clean decode; per chunk: one splice
+    # and the suffix's 7 attentions forward and backward.
     expected = {"block_max": 2, "flash_attention": 25 + n_suffix * chunks,
                 "flash_attention_bwd_delta": n_suffix * chunks, "flash_attention_bwd_dkdv": n_suffix * chunks,
                 "flash_attention_bwd_dq": n_suffix * chunks, "gather_rows": 1, "splice_decode": chunks,
-                "decode_dvals": 0}
+                "decode_dvals": 0, "sae_encode": 1}
     if launches != expected:
         raise AssertionError(f"attribution kernel launches {launches}, expected {expected}")
     sal = _saliency(out, hook)  # (16, 1, S)
@@ -1772,7 +1931,7 @@ def phase_attribution_path(dev, card: str) -> dict:
     launches2 = kernel_counts()
     expected2 = {"block_max": 2, "flash_attention": 25 + n_suffix, "flash_attention_bwd_delta": n_suffix,
                  "flash_attention_bwd_dkdv": n_suffix, "flash_attention_bwd_dq": n_suffix, "gather_rows": 1,
-                 "splice_decode": 1, "decode_dvals": 0}
+                 "splice_decode": 1, "decode_dvals": 0, "sae_encode": 1}
     if launches2 != expected2:
         raise AssertionError(f"masked attribution kernel launches {launches2}, expected {expected2}")
     sal2 = _saliency(out2, hook)  # (8, 2, 512)
@@ -1934,7 +2093,8 @@ def check_fast_vs_slow(params: dict, x: torch.Tensor, cfg) -> tuple:
         grads[fast] = {n: t.grad for n, t in p.items()}
         del p, out
     expected = {"block_max": 2, "flash_attention": 0, "flash_attention_bwd_delta": 0, "flash_attention_bwd_dkdv": 0,
-                "flash_attention_bwd_dq": 0, "gather_rows": 1, "splice_decode": 0, "decode_dvals": 1}
+                "flash_attention_bwd_dq": 0, "gather_rows": 1, "splice_decode": 0, "decode_dvals": 1,
+                "sae_encode": 0}
     if launches != expected:
         raise AssertionError(f"forward(fast=False) kernel launches {launches}, expected {expected}")
     rel = {n: _l2_rel(grads[False][n], grads[True][n]) for n in params}
@@ -2107,9 +2267,10 @@ def phase_train_path(dev, card: str) -> dict:
         seconds["auxk_batch"] = time.perf_counter() - t0
         auxk_peak_gb = torch.cuda.max_memory_allocated() / 1e9
         launches = kernel_counts()
+        # The trainer's SAE (W_enc requires grad) encodes by torch.matmul.
         expected = {"block_max": 2 * (9 * TRAIN_MICRO + AUXK_MICRO), "flash_attention": 25 * n_batches,
                     "flash_attention_bwd_delta": 0, "flash_attention_bwd_dkdv": 0, "flash_attention_bwd_dq": 0,
-                    "gather_rows": 0, "splice_decode": 0, "decode_dvals": 0}
+                    "gather_rows": 0, "splice_decode": 0, "decode_dvals": 0, "sae_encode": 0}
         if launches != expected:
             raise AssertionError(f"training kernel launches {launches}, expected {expected}")
         if not all(np.isfinite(v) for line in losses for v in line.values()):
@@ -2290,7 +2451,8 @@ def phase_image_cache_path(dev, card: str) -> dict:
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         expected = {"block_max": 2 * len(batches), "flash_attention": 25 * len(batches),
                     "flash_attention_bwd_delta": 0, "flash_attention_bwd_dkdv": 0,
-                    "flash_attention_bwd_dq": 0, "gather_rows": 0, "splice_decode": 0, "decode_dvals": 0}
+                    "flash_attention_bwd_dq": 0, "gather_rows": 0, "splice_decode": 0, "decode_dvals": 0,
+                    "sae_encode": len(batches)}
         if launches != expected:
             raise AssertionError(f"kernel launches {launches} over {len(batches)} batches, expected {expected}")
         t0 = time.perf_counter()
@@ -2915,15 +3077,16 @@ def phase_general_attribution_path(dev, card: str, model, sae24) -> dict:
     stages = marks.ms()
     F, n_above = len(feats), n_layers - 1 - int(lower.split(".")[1])
     # The clean spliced forward once, then per feature the corrupted forward
-    # (32 attentions, a top-k of two block-max levels and a decode at each
-    # splice), the backward through the 15 layers above the lower splice,
-    # and the upper splice's decode backward (dvals; the lower splice's
-    # values take no gradient).
-    clean = {"block_max": 4, "flash_attention": n_layers, "gather_rows": 2}
+    # (32 attentions, an encode, a top-k of two block-max levels and a
+    # decode at each splice: the upper splice's encode records its graph
+    # and still runs the kernel), the backward through the 15 layers above
+    # the lower splice, and the upper splice's decode backward (dvals; the
+    # lower splice's values take no gradient).
+    clean = {"block_max": 4, "flash_attention": n_layers, "gather_rows": 2, "sae_encode": 2}
     expected = {"block_max": 4 * (F + 1), "flash_attention": n_layers * (F + 1),
                 "flash_attention_bwd_delta": n_above * F, "flash_attention_bwd_dkdv": n_above * F,
                 "flash_attention_bwd_dq": n_above * F, "gather_rows": 2 * (F + 1), "splice_decode": 0,
-                "decode_dvals": F}
+                "decode_dvals": F, "sae_encode": 2 * (F + 1)}
     if launches != expected:
         raise AssertionError(f"general attribution kernel launches {launches}, expected {expected}")
     # A splice's output changes, and its saliency is nonzero, exactly where
@@ -3127,7 +3290,7 @@ def phase_remat_attribution_path(dev, card: str, model, sae) -> dict:
         _expect_launches(general[tag]["launches"], {"flash_attention": fwd, "flash_attention_bwd_delta": n_suffix,
                                                     "flash_attention_bwd_dkdv": n_suffix,
                                                     "flash_attention_bwd_dq": n_suffix, "block_max": 4,
-                                                    "gather_rows": 2},
+                                                    "gather_rows": 2, "sae_encode": 2},
                          f"general feature ({tag})")
     a, b = general["no_remat"].pop("sal"), general["remat"].pop("sal")
     if not np.array_equal(a, b) or not a.any():
@@ -3781,10 +3944,10 @@ def phase_steering_path(dev, card: str, model, sae) -> dict:
     launches = kernel_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # The baseline's prefill runs 32 attentions; the chunk's too, and its
-    # clamp two block-max levels and one decode per token chunk; no decode
-    # step launches a kernel.
-    _expect_launches(launches, {"flash_attention": 64, "block_max": 2 * chunks, "gather_rows": chunks},
-                     "SteeringController.run")
+    # clamp an encode, two block-max levels and one decode per token chunk;
+    # no decode step launches a kernel.
+    _expect_launches(launches, {"flash_attention": 64, "block_max": 2 * chunks, "gather_rows": chunks,
+                                "sae_encode": chunks}, "SteeringController.run")
     keys = [f"{hook}_feature{f}" for f in feats]
     if list(result) != keys:
         raise AssertionError("the steering result's keys differ from the features")
@@ -3801,7 +3964,8 @@ def phase_steering_path(dev, card: str, model, sae) -> dict:
                                                  **kw)
     runs.append(timed_steered["launches"]["prefill"])
     _expect_launches(timed_steered["launches"]["prefill"],
-                     {"flash_attention": 32, "block_max": 2 * chunks, "gather_rows": chunks}, "the steered prefill")
+                     {"flash_attention": 32, "block_max": 2 * chunks, "gather_rows": chunks, "sae_encode": chunks},
+                     "the steered prefill")
     _expect_launches(timed_steered["launches"]["decode"], {}, "the steered decode steps")
     if not torch.equal(out_steered[:, S_p:].cpu(), steered):
         raise AssertionError("a second steered generate gave other tokens")
@@ -3818,10 +3982,10 @@ def phase_steering_path(dev, card: str, model, sae) -> dict:
                                              intervene_prefill_only=False, **kw)
     steps = timed_every["step_ms"]["steps"]
     runs += [timed_every["launches"]["prefill"], timed_every["launches"]["decode"]]
-    _expect_launches(timed_every["launches"]["prefill"], {"flash_attention": 32, "block_max": 2, "gather_rows": 1},
-                     "the every-step prefill")
-    _expect_launches(timed_every["launches"]["decode"], {"block_max": 2 * steps, "gather_rows": steps},
-                     "the every-step decode steps")
+    _expect_launches(timed_every["launches"]["prefill"], {"flash_attention": 32, "block_max": 2, "gather_rows": 1,
+                                                          "sae_encode": 1}, "the every-step prefill")
+    _expect_launches(timed_every["launches"]["decode"], {"block_max": 2 * steps, "gather_rows": steps,
+                                                         "sae_encode": steps}, "the every-step decode steps")
 
     # A sampled run: temperature 0.6 and top_p 0.9 (LLaMA-3-8B-Instruct's
     # generation_config.json), 32 tokens, the same 64 features.
@@ -3833,8 +3997,8 @@ def phase_steering_path(dev, card: str, model, sae) -> dict:
     torch.cuda.synchronize()
     seconds["sampled_run"] = time.perf_counter() - t0
     runs.append(kernel_counts())
-    _expect_launches(runs[-1], {"flash_attention": 64, "block_max": 2 * chunks, "gather_rows": chunks},
-                     "the sampled run")
+    _expect_launches(runs[-1], {"flash_attention": 64, "block_max": 2 * chunks, "gather_rows": chunks,
+                                "sae_encode": chunks}, "the sampled run")
     for k_ in keys:
         _answer_ids(sampled[k_]["clamped_resps"], 32, vocab)
 
@@ -3984,8 +4148,8 @@ def phase_image_steering_path(dev, card: str) -> dict:
         n_crops, tower_run = crops.shape[0], list(tower_calls)
         if tower_run != [n_crops, n_crops]:
             raise AssertionError(f"the tower ran on {tower_run} crops; once per generate on {n_crops} expected")
-        _expect_launches(launches, {"flash_attention": 64, "block_max": 2 * chunks, "gather_rows": chunks},
-                         "image SteeringController.run")
+        _expect_launches(launches, {"flash_attention": 64, "block_max": 2 * chunks, "gather_rows": chunks,
+                                    "sae_encode": chunks}, "image SteeringController.run")
         keys = [f"{hook}_feature{f}" for f in feats]
         vocab = cfg.text_config.vocab_size
         steered = torch.tensor([_answer_ids(result[k]["clamped_resps"], new, vocab) for k in keys])
@@ -3995,7 +4159,8 @@ def phase_image_steering_path(dev, card: str) -> dict:
         out8, timed = _timed_generate(model, batch8, iv, new, record=record, **ctl._sample_kwargs)
         runs = [launches, timed["launches"]["prefill"]]
         _expect_launches(timed["launches"]["prefill"], {"flash_attention": 32, "block_max": 2 * chunks,
-                                                       "gather_rows": chunks}, "the image prefill")
+                                                       "gather_rows": chunks, "sae_encode": chunks},
+                         "the image prefill")
         _expect_launches(timed["launches"]["decode"], {}, "the image decode steps")
         if not torch.equal(out8[:, S_p:].cpu(), steered):
             raise AssertionError("a second image generate gave other tokens")
@@ -4357,7 +4522,7 @@ def phase_image_attribution_path(dev, card: str, model, sae) -> dict:
                                     "flash_attention_bwd_delta": n_suffix * chunks,
                                     "flash_attention_bwd_dkdv": n_suffix * chunks,
                                     "flash_attention_bwd_dq": n_suffix * chunks, "gather_rows": 1,
-                                    "splice_decode": chunks}, "image attribution")
+                                    "splice_decode": chunks, "sae_encode": 1}, "image attribution")
         sal = _saliency(out, hook)  # (16, 1, S)
         if sal.shape != (len(feats), 1, S):
             raise AssertionError(f"saliency shape {sal.shape}")
@@ -4411,8 +4576,8 @@ def phase_image_attribution_path(dev, card: str, model, sae) -> dict:
             raise AssertionError(f"the tower ran on {tower_calls} crops in the ragged run")
         _expect_launches(launches2, {"block_max": 2, "flash_attention": 25 + n_suffix,
                                      "flash_attention_bwd_delta": n_suffix, "flash_attention_bwd_dkdv": n_suffix,
-                                     "flash_attention_bwd_dq": n_suffix, "gather_rows": 1, "splice_decode": 1},
-                         "ragged image attribution")
+                                     "flash_attention_bwd_dq": n_suffix, "gather_rows": 1, "splice_decode": 1,
+                                     "sae_encode": 1}, "ragged image attribution")
         sal2 = _saliency(out2, hook)  # (4, 2, S2)
         pad = S2 - lengths[0]
         if np.any(sal2[:, 0, :pad] != 0):
@@ -4559,7 +4724,7 @@ def _timed_core(fn):
 
 
 def _tool_launches(launches: dict) -> dict:
-    return {name: launches[name] for name in ("flash_attention", "block_max", "gather_rows")}
+    return {name: launches[name] for name in ("flash_attention", "block_max", "gather_rows", "sae_encode")}
 
 
 def _parse_heatmap(page: str) -> dict:
@@ -4614,9 +4779,10 @@ def phase_tools_path(dev, card: str, model, sae) -> dict:
     model_steering.steer(model, sae, batch, hook, feature, TOOLS_CLAMP, max_new_tokens=2)  # warm-up
     (original, steered), steer_ms, steer_launches = _timed_core(
         lambda: model_steering.steer(model, sae, batch, hook, feature, TOOLS_CLAMP, max_new_tokens=TOOLS_NEW))
-    # Two prefills of 32 attentions; the clamp (74 tokens, one chunk) two
-    # block-max levels and one decode; no decode step launches a kernel.
-    _expect_launches(steer_launches, {"flash_attention": 64, "block_max": 2, "gather_rows": 1},
+    # Two prefills of 32 attentions; the clamp (74 tokens, one chunk) an
+    # encode, two block-max levels and one decode; no decode step launches
+    # a kernel.
+    _expect_launches(steer_launches, {"flash_attention": 64, "block_max": 2, "gather_rows": 1, "sae_encode": 1},
                      "model_steering's core")
     direct = model.generate(batch, max_new_tokens=TOOLS_NEW)
     direct_steered = model.generate(batch, max_new_tokens=TOOLS_NEW, intervene_prefill_only=True,
@@ -4634,8 +4800,8 @@ def phase_tools_path(dev, card: str, model, sae) -> dict:
     probe_activations.probe(model, sae, {"input_ids": ids[:, :64]}, hook, interval)  # warm-up
     (feats, acts, mean), probe_ms, probe_launches = _timed_core(
         lambda: probe_activations.probe(model, sae, {"input_ids": ids}, hook, interval))
-    # A capture runs the 25 layers up to the hookpoint; no top-k.
-    _expect_launches(probe_launches, {"flash_attention": 25}, "probe_activations' core")
+    # A capture runs the 25 layers up to the hookpoint, then one encode; no top-k.
+    _expect_launches(probe_launches, {"flash_attention": 25, "sae_encode": 1}, "probe_activations' core")
     hidden = model.capture({"input_ids": ids}, [hook])[hook][0]
     if acts.shape != (10, ids.shape[1]) or not np.isfinite(acts).all():
         raise AssertionError(f"probe columns of shape {acts.shape}, or not finite")
@@ -4649,8 +4815,9 @@ def phase_tools_path(dev, card: str, model, sae) -> dict:
     text_activation_vis.feature_activations(model, {hook: sae}, ids[0, :64].tolist(), {hook: hm_feats})  # warm-up
     columns, heatmap_ms, heatmap_launches = _timed_core(
         lambda: text_activation_vis.feature_activations(model, {hook: sae}, ids[0].tolist(), {hook: hm_feats}))
-    # The capture's 25 attentions; the encode's two block-max levels.
-    _expect_launches(heatmap_launches, {"flash_attention": 25, "block_max": 2}, "text_activation_vis' core")
+    # The capture's 25 attentions; the encode and its two block-max levels.
+    _expect_launches(heatmap_launches, {"flash_attention": 25, "block_max": 2, "sae_encode": 1},
+                     "text_activation_vis' core")
     columns = columns[hook]
     # Every written activation is the encode's value: idx and vals on the
     # host, each feature's column scattered there.
@@ -4746,7 +4913,7 @@ def phase_image_tools_path(dev, card: str, model, sae, saliency: dict) -> dict:
     probe_activations.probe(model, sae, batch, hook, interval, skip_bos=True)  # warm-up
     (feats, acts, mean), probe_ms, launches = _timed_core(
         lambda: probe_activations.probe(model, sae, batch, hook, interval, skip_bos=True))
-    _expect_launches(launches, {"flash_attention": 25}, "the image probe's core")
+    _expect_launches(launches, {"flash_attention": 25, "sae_encode": 1}, "the image probe's core")
     hidden = model.capture(batch, [hook])[hook][0, 1:]
     if acts.shape != (10, hidden.shape[0]) or not np.isfinite(acts).all():
         raise AssertionError(f"image probe columns of shape {acts.shape}, or not finite")
@@ -4931,7 +5098,7 @@ def phase_dp_cache_path(card: str, work_dir: str, cache: dict) -> dict:
     batches = n_rows // 8 // DP_WORLD
     expected = {"block_max": 2 * batches, "flash_attention": 25 * batches, "flash_attention_bwd_delta": 0,
                 "flash_attention_bwd_dkdv": 0, "flash_attention_bwd_dq": 0, "gather_rows": 0, "splice_decode": 0,
-                "decode_dvals": 0}
+                "decode_dvals": 0, "sae_encode": batches}
     for r in results:
         if r["launches"] != expected:
             raise AssertionError(f"rank {r['rank']} launched {r['launches']}, expected {expected}")
@@ -5094,8 +5261,7 @@ def phase_dp_train_path(dev, card: str, work_dir: str) -> dict:
         "solo": {"tokens_per_s": n * DP_WORLD * B * 2048 / solo_s, "peak_gb": solo_peak_gb},
         "seconds": time.perf_counter() - t_phase, "card": card,
     })
-    names = ("block_max", "flash_attention", "flash_attention_bwd_delta", "flash_attention_bwd_dkdv",
-             "flash_attention_bwd_dq", "gather_rows", "splice_decode", "decode_dvals")
+    names = tuple(_counted_modules())
     return {"launches": {name: sum(r["launches"][name] for r in results) for name in names},
             "per_rank": [r["launches"] for r in results]}
 
@@ -5156,7 +5322,7 @@ def phase_nccl_path(card: str, work_dir: str, cache: dict) -> dict:
     nccl_dir = os.path.join(work_dir, "nccl_path")
     (result,), _ = spawn_ranks("nccl", {"sae_dir": sae_dir, "work_dir": nccl_dir}, 1)
     n_files = _dirs_byte_equal(os.path.join(nccl_dir, "nccl", NCCL_HOOK), os.path.join(nccl_dir, "solo", NCCL_HOOK))
-    expected = {"block_max": 4, "flash_attention": 2 * NCCL_LAYERS}
+    expected = {"block_max": 4, "flash_attention": 2 * NCCL_LAYERS, "sae_encode": 2}
     if {k: result["launches"][k] for k in expected} != expected:
         raise AssertionError(f"nccl_path launched {result['launches']}, expected {expected}")
     emit({"phase": "nccl_path", "world": 1, "backend": result["backend"], "layers": NCCL_LAYERS, "hookpoint": NCCL_HOOK,
@@ -5342,7 +5508,9 @@ def phase_int8_cache_path(dev, card: str, cache: dict) -> dict:
             run_s = time.perf_counter() - t0
             launches = kernel_counts()
             peak_gb = torch.cuda.max_memory_allocated() / 1e9
-            expected = {"block_max": 2 * INT8_CACHE_BATCHES, "flash_attention": 25 * INT8_CACHE_BATCHES}
+            # The int8 encoder runs its W8A8 product, not the split kernel.
+            expected = {"block_max": 2 * INT8_CACHE_BATCHES, "flash_attention": 25 * INT8_CACHE_BATCHES,
+                        "sae_encode": 0 if sae_int8 else INT8_CACHE_BATCHES}
             if {k: launches[k] for k in expected} != expected or sum(launches.values()) != sum(expected.values()):
                 raise AssertionError(f"{mode}: launches {launches}, expected {expected}")
             for name, n in launches.items():
@@ -5436,7 +5604,7 @@ def phase_int8_subject_path(dev, card: str) -> dict:
     expected = {"block_max": 2, "flash_attention": 25 + n_suffix * chunks,
                 "flash_attention_bwd_delta": n_suffix * chunks, "flash_attention_bwd_dkdv": n_suffix * chunks,
                 "flash_attention_bwd_dq": n_suffix * chunks, "gather_rows": 1, "splice_decode": chunks,
-                "decode_dvals": 0}
+                "decode_dvals": 0, "sae_encode": 1}
     if launches != expected:
         raise AssertionError(f"int8 attribution launches {launches}, expected {expected}")
     if sal.shape != (len(feats), 1, S) or not np.any(sal[:8] != 0):
@@ -5524,8 +5692,8 @@ def phase_int8_image_path(dev, card: str) -> dict:
             torch.cuda.synchronize()
             run_s = time.perf_counter() - t0
             launches = kernel_counts()
-            expected = {"block_max": 2, "flash_attention": 25}
-            if {k: launches[k] for k in expected} != expected or sum(launches.values()) != 27:
+            expected = {"block_max": 2, "flash_attention": 25, "sae_encode": 1}
+            if {k: launches[k] for k in expected} != expected or sum(launches.values()) != sum(expected.values()):
                 raise AssertionError(f"{mode}: launches {launches}, expected {expected}")
             for name, n in launches.items():
                 launches_total[name] = launches_total.get(name, 0) + n
@@ -5682,8 +5850,7 @@ def phase_module_sharded_train_path(dev, card: str, work_dir: str) -> dict:
         "solo": {"tokens_per_s": n * DP_WORLD * B * 2048 / solo_s, "peak_gb": solo_peak_gb},
         "seconds": time.perf_counter() - t_phase, "card": card,
     })
-    names = ("block_max", "flash_attention", "flash_attention_bwd_delta", "flash_attention_bwd_dkdv",
-             "flash_attention_bwd_dq", "gather_rows", "splice_decode", "decode_dvals")
+    names = tuple(_counted_modules())
     return {"launches": {name: sum(r["launches"][name] for r in results) for name in names},
             "per_rank": [r["launches"] for r in results]}
 
@@ -5896,8 +6063,7 @@ def phase_tp_cache_path(dev, card: str, work_dir: str, cache: dict) -> dict:
         "kept_min": TP_KEPT_MIN, "ranks": results, "card_peak_gb_nvidia_smi": card_peak_gb,
         "seconds": time.perf_counter() - t_phase, "card": card,
     })
-    names = ("block_max", "flash_attention", "flash_attention_bwd_delta", "flash_attention_bwd_dkdv",
-             "flash_attention_bwd_dq", "gather_rows", "splice_decode", "decode_dvals")
+    names = tuple(_counted_modules())
     return {"launches": {name: sum(r["launches"][name] for r in results) for name in names},
             "per_rank": [r["launches"] for r in results]}
 
@@ -6046,8 +6212,7 @@ def phase_tp_subject_path(dev, card: str, work_dir: str) -> dict:
         "k3_chain_rank_shape": k3_chain, "k3_forward_tp_cache_shape": k3_cache,
         "seconds": time.perf_counter() - t_phase, "card": card,
     })
-    names = ("block_max", "flash_attention", "flash_attention_bwd_delta", "flash_attention_bwd_dkdv",
-             "flash_attention_bwd_dq", "gather_rows", "splice_decode", "decode_dvals")
+    names = tuple(_counted_modules())
     launches = [{n: r["attribution"]["launches"][n] + r["generate"]["launches"][n] for n in names} for r in results]
     return {"launches": {n: sum(run[n] for run in launches) for n in names}, "per_rank": launches,
             "k3_chain": k3_chain, "k3_cache": k3_cache}
@@ -6250,8 +6415,7 @@ def phase_tp_train_path(dev, card: str, work_dir: str) -> dict:
         "reference_trainers_s": ref_s, "ranks": results, "card_peak_gb_nvidia_smi": card_peak_gb,
         "seconds": time.perf_counter() - t_phase, "card": card,
     })
-    names = ("block_max", "flash_attention", "flash_attention_bwd_delta", "flash_attention_bwd_dkdv",
-             "flash_attention_bwd_dq", "gather_rows", "splice_decode", "decode_dvals")
+    names = tuple(_counted_modules())
     return {"launches": {name: sum(r["launches"][name] for r in results) for name in names},
             "per_rank": [r["launches"] for r in results]}
 
@@ -6371,8 +6535,7 @@ def phase_tp_module_sharded_train_path(dev, card: str, work_dir: str) -> dict:
         "equal_bits_to_tp_trainer": True, "ranks": results, "card_peak_gb_nvidia_smi": card_peak_gb,
         "seconds": time.perf_counter() - t_phase, "card": card,
     })
-    names = ("block_max", "flash_attention", "flash_attention_bwd_delta", "flash_attention_bwd_dkdv",
-             "flash_attention_bwd_dq", "gather_rows", "splice_decode", "decode_dvals")
+    names = tuple(_counted_modules())
     return {"launches": {name: sum(r["launches"][name] for r in results) for name in names},
             "per_rank": [r["launches"] for r in results]}
 
@@ -6528,6 +6691,7 @@ def main() -> int:
     k1 = phase_block_max(dev)
     k3 = phase_flash_attention(dev)
     k3_bwd = phase_flash_attention_bwd(dev)
+    sae_encode = phase_sae_encode(dev)
     # The loader reads the splits the cache phase merged, in its directory.
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work_dir:
         cache = phase_cache_path(dev, card, work_dir)
@@ -6729,6 +6893,21 @@ def main() -> int:
           "launches": {"tools_path": tools["per_tool"], "image_tools_path": {"probe_activations": {
               name: image_tools["launches"][name] for name in ("flash_attention", "block_max", "gather_rows")}}},
           "peak_gb": max(tools["peak_gb"], image_tools["peak_gb"])})
+    # The split product's launches on the main paths (the kernel's own
+    # phase is not among them): one a cache batch, a no-grad prompt encode,
+    # a clamp chunk, a probe, a spliced forward's hook; none in training.
+    sae_encode["launches"] = total["sae_encode"]
+    sae_encode["launches_by_phase"] = {phase: run["sae_encode"] for phase, run in (
+        ("cache_path", cache["launches"]), ("hub_sae_path", hub["launches"]), ("dp_cache_path", dp_cache["launches"]),
+        ("nccl_path", nccl["launches"]), ("int8_cache_path", int8_cache["launches"]),
+        ("attribution_path", attribution["launches"]), ("general_attribution_path", general["launches"]),
+        ("remat_attribution_path", remat["launches"]), ("steering_path", steering["launches"]),
+        ("tools_path", tools["launches"]), ("int8_subject_path", int8_subject["launches"]),
+        ("train_path", train["launches"]), ("image_cache_path", image["launches"]),
+        ("image_train_path", image_train["launches"]), ("image_steering_path", image_steering["launches"]),
+        ("image_attribution_path", image_attribution["launches"]), ("image_tools_path", image_tools["launches"]),
+        ("int8_image_path", int8_image["launches"]))}
+    kernels_line["kernels"].append(sae_encode)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit(kernels_line)
     print(card_line(), flush=True)

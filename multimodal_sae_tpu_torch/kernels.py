@@ -29,6 +29,7 @@ CUDA_SOURCES = {
     "flash_attention": CSRC / "flash_attention.cu",
     "flash_attention_bwd": CSRC / "flash_attention_bwd.cu",
     "gather_rows": CSRC / "gather_rows.cu",
+    "sae_encode": CSRC / "sae_encode.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -26,7 +26,7 @@ from torch import nn
 
 from ..config import SaeConfig
 from ..device import DeviceLike, resolve_device, set_precision
-from ..ops import top_k
+from ..ops import sae_encode, top_k
 from ..ops.sparse_decode import sparse_decode, topk_mask_decode
 from ..ops.topk import kth_value
 from ..models.quant import is_quantized, leaf_dtype, qmatmul, quantize_weight
@@ -99,9 +99,15 @@ def init_params(
 
 
 def pre_acts(params: Params, x: torch.Tensor) -> torch.Tensor:
-    """relu((x - b_dec) @ W_enc + b_enc) in the SAE's dtype.  The matmul is
-    left to `torch.matmul`, as the JAX package leaves it to XLA; fp32 runs
-    with TF32 off (device.set_precision), matching the JAX side's HIGHEST.
+    """relu((x - b_dec) @ W_enc + b_enc) in the SAE's dtype.  Where
+    `ops.sae_encode.takes` admits the tensors (fp32 on CUDA, a fitting
+    shape, W_enc not being trained) it runs the split fp32 product on the
+    tensor cores (`ops/sae_encode.py`: fp32's precision, not TF32's), with
+    or without a graph, its gradient to x and the biases by the plain
+    matmuls; otherwise the matmul is left to `torch.matmul`, as the JAX
+    package leaves it to XLA, and fp32 runs with TF32 off
+    (device.set_precision), matching the JAX side's HIGHEST.  The trainer's
+    SAEs (W_enc requires grad) and every CPU call take `torch.matmul`.
 
     With a quantised encoder (`quantize_encoder`) the product is W8A8
     (models/quant.py): each row of x - b_dec quantised by its absmax, an
@@ -112,6 +118,8 @@ def pre_acts(params: Params, x: torch.Tensor) -> torch.Tensor:
     if is_quantized(W):
         sae_in = x.to(params["b_enc"].dtype) - params["b_dec"]
         return qmatmul(sae_in, W, int8=True).add_(params["b_enc"]).relu_()
+    if sae_encode.takes(x, W, params["b_enc"], params["b_dec"]):
+        return sae_encode.encode(x, W, params["b_enc"], params["b_dec"])
     out = (x.to(W.dtype) - params["b_dec"]) @ W
     return out.add_(params["b_enc"]).relu_()
 
